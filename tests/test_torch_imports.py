@@ -1,0 +1,42 @@
+"""The port stands alone: importing every ``repro_torch`` module loads
+neither ``jax`` nor the JAX package ``repro``."""
+import os
+import pathlib
+import subprocess
+import sys
+
+SRC = pathlib.Path(__file__).resolve().parents[1] / "src"
+
+
+def _modules():
+    mods = []
+    for p in (SRC / "repro_torch").rglob("*.py"):
+        parts = p.relative_to(SRC).with_suffix("").parts
+        mods.append(".".join(parts[:-1] if parts[-1] == "__init__"
+                             else parts))
+    return sorted(mods)
+
+
+def test_module_list_covers_the_slice():
+    mods = _modules()
+    for m in ("repro_torch", "repro_torch.rng", "repro_torch.convert",
+              "repro_torch.quickstart", "repro_torch.core.spaceify",
+              "repro_torch.core.autoflsat", "repro_torch.sim.flystack",
+              "repro_torch.kernels.quant_agg", "repro_torch.kernels._build"):
+        assert m in mods
+
+
+def test_port_imports_neither_jax_nor_repro():
+    code = ("import importlib, sys\n"
+            f"for m in {_modules()!r}:\n"
+            "    importlib.import_module(m)\n"
+            "bad = sorted(m for m in sys.modules if m == 'jax' or "
+            "m.startswith('jax.') or m.startswith('jaxlib') or m == 'repro' "
+            "or m.startswith('repro.'))\n"
+            "assert not bad, bad\n"
+            "print('ok', len(sys.modules))\n")
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.startswith("ok")

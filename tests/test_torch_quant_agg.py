@@ -1,0 +1,167 @@
+"""Port parity: kernel K1 (``quant_agg_stacked``), QuAFL quantization and
+the plain aggregation half of ``repro_torch`` against the JAX package.
+
+On the CPU the K1 wrapper takes its plain version, which is held here
+against the Pallas kernel (interpret mode) and the jnp oracle at the
+reference's own bar, rtol/atol 1e-5 (``tests/test_quant_agg_stacked.py``).
+The CUDA kernel itself is held against the plain version on the card by
+``tests/test_torch_kernels.py`` and ``chip_smoke.py``."""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.core import aggregation as JA
+from repro.core import quantize as JQ
+from repro.kernels import ops
+from repro_torch.convert import params_from_numpy
+from repro_torch.core import aggregation as TA
+from repro_torch.core import quantize as TQ
+from repro_torch.kernels import quant_agg as K1
+
+torch.set_num_threads(1)
+
+
+def _inputs(n, k, seed):
+    rng = np.random.default_rng(seed)
+    acc = rng.standard_normal(n).astype(np.float32)
+    q = rng.integers(-127, 127, (k, n)).astype(np.int32)
+    sw = rng.uniform(0.0, 0.1, k).astype(np.float32)
+    return acc, q, sw
+
+
+@pytest.mark.parametrize("mode", ["pallas_interpret", "jnp"])
+@pytest.mark.parametrize("n,k", [(7, 1), (2048, 3), (2049, 4), (100_003, 2)])
+def test_plain_k1_matches_reference(n, k, mode):
+    acc, q, sw = _inputs(n, k, n + k)
+    want = np.asarray(ops.quantized_stacked_accumulate(
+        jnp.asarray(acc), jnp.asarray(q), jnp.asarray(sw), mode=mode))
+    got = K1.quant_agg_stacked(torch.from_numpy(acc), torch.from_numpy(q),
+                               torch.from_numpy(sw))
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
+
+
+def test_k1_cpu_route_is_plain_and_counts_nothing():
+    acc, q, sw = _inputs(517, 3, 0)
+    args = (torch.from_numpy(acc).reshape(11, 47),
+            torch.from_numpy(q).reshape(3, 11, 47), torch.from_numpy(sw))
+    before = K1.launches
+    got = K1.quant_agg_stacked(*args)
+    assert K1.launches == before
+    assert torch.equal(got, K1.quant_agg_stacked_plain(*args))
+    assert got.shape == (11, 47)
+
+
+def test_k1_wrapper_checks_inputs():
+    acc, q, sw = (torch.from_numpy(a) for a in _inputs(64, 2, 1))
+    with pytest.raises(TypeError):
+        K1.quant_agg_stacked(acc, q.to(torch.int64), sw)
+    with pytest.raises(ValueError):
+        K1.quant_agg_stacked(acc, q[:, :32], sw)
+    with pytest.raises(ValueError):
+        K1.quant_agg_stacked(acc, q, sw[:1])
+    with pytest.raises(ValueError):
+        K1.quant_agg_stacked(acc[::2], q[:, ::2], sw)
+
+
+@pytest.mark.parametrize("bits", [8, 10])
+@pytest.mark.parametrize("shape", [(4, 33), (5, 3, 3, 16, 32), (2, 62)])
+def test_quantize_stacked_bitwise(shape, bits):
+    x = np.random.default_rng(bits).standard_normal(shape).astype(np.float32)
+    qj, sj = JQ.quantize_stacked(jnp.asarray(x), bits)
+    qt, st = TQ.quantize_stacked(torch.from_numpy(x), bits)
+    np.testing.assert_array_equal(qt.numpy(), np.asarray(qj))
+    np.testing.assert_array_equal(st.numpy(), np.asarray(sj))
+    assert qt.dtype == torch.int32
+
+
+def test_quantize_roundtrip_and_bytes_bitwise():
+    rng = np.random.default_rng(3)
+    p = {"a": rng.standard_normal((65, 3)).astype(np.float32),
+         "b": np.linspace(-2.0, 2.0, 31).astype(np.float32)}
+    want = JQ.quantize_roundtrip({k: jnp.asarray(v) for k, v in p.items()},
+                                 10)
+    got = TQ.quantize_roundtrip(params_from_numpy(p), 10)
+    for k in p:
+        np.testing.assert_array_equal(got[k].numpy(), np.asarray(want[k]))
+    stacked = {"w": rng.standard_normal((3, 40)).astype(np.float32)}
+    want = JQ.quantize_roundtrip_stacked({"w": jnp.asarray(stacked["w"])}, 10)
+    got = TQ.quantize_roundtrip_stacked(params_from_numpy(stacked), 10)
+    np.testing.assert_array_equal(got["w"].numpy(), np.asarray(want["w"]))
+    for bits in (0, 8, 10):
+        assert TQ.transmit_bytes(params_from_numpy(p), bits) == \
+            JQ.transmit_bytes({k: jnp.asarray(v) for k, v in p.items()}, bits)
+
+
+@pytest.mark.parametrize("shape", [(3, 37), (2, 8, 260), (5, 1000)])
+def test_quantized_weighted_average_matches_reference(shape):
+    x = np.random.default_rng(shape[-1]).standard_normal(shape) \
+        .astype(np.float32)
+    w = np.arange(1, shape[0] + 1, dtype=np.float64)
+    want = JA.quantized_weighted_average({"w": jnp.asarray(x)}, w, 10,
+                                         mode="jnp")
+    got = TA.quantized_weighted_average({"w": torch.from_numpy(x)}, w, 10)
+    np.testing.assert_allclose(got["w"].numpy(), np.asarray(want["w"]),
+                               rtol=1e-5, atol=1e-6)
+
+
+def test_nan_scale_pad_row_stays_inert():
+    """A zero-weight pad row with a non-finite scale adds exactly nothing."""
+    real = np.random.default_rng(2).standard_normal((2, 40)) \
+        .astype(np.float32)
+    junk = np.full((1, 40), np.nan, np.float32)
+    w = np.array([1.0, 1.0, 0.0])
+    got = TA.quantized_weighted_average(
+        {"w": torch.from_numpy(np.concatenate([real, junk]))}, w, 8)
+    want = TA.quantized_weighted_average({"w": torch.from_numpy(real)},
+                                         w[:2], 8)
+    assert torch.isfinite(got["w"]).all()
+    np.testing.assert_allclose(got["w"].numpy(), want["w"].numpy(),
+                               rtol=1e-6, atol=1e-6)
+
+
+def test_weighted_average_pad_width_invariant():
+    """Appending zero-weight rows (even non-finite ones) leaves the result
+    bitwise unchanged, and it matches the reference bitwise."""
+    rng = np.random.default_rng(4)
+    real = rng.standard_normal((3, 5, 7)).astype(np.float32)
+    w = np.array([32.0, 16.0, 32.0])
+    base = TA.weighted_average({"w": torch.from_numpy(real)}, w)["w"]
+    for pad in (1, 4):
+        junk = np.full((pad, 5, 7), np.inf, np.float32)
+        got = TA.weighted_average(
+            {"w": torch.from_numpy(np.concatenate([real, junk]))},
+            np.concatenate([w, np.zeros(pad)]))["w"]
+        np.testing.assert_array_equal(got.numpy(), base.numpy())
+    want = JA.weighted_average({"w": jnp.asarray(real)}, w)["w"]
+    np.testing.assert_array_equal(base.numpy(), np.asarray(want))
+
+
+def test_segment_means_and_buffered_deltas_match_reference():
+    rng = np.random.default_rng(5)
+    x = {"a": rng.standard_normal((10, 6)).astype(np.float32),
+         "b": rng.standard_normal((10, 2, 3)).astype(np.float32)}
+    jx = {k: jnp.asarray(v) for k, v in x.items()}
+    tx = params_from_numpy(x)
+    want, got = JA.segment_mean(jx, 2), TA.segment_mean(tx, 2)
+    wts = np.array([1, 0, 1, 1, 0, 1, 1, 1, 1, 0], np.float32)
+    want_w = JA.segment_weighted_mean(jx, jnp.asarray(wts), 2)
+    got_w = TA.segment_weighted_mean(tx, wts, 2)
+    g = {k: v[0] for k, v in x.items()}
+    dw = np.array([0.5, 1.0, 0.25, 1.0, 0.7, 1.0, 0.2, 0.3, 1.0, 0.9],
+                  np.float32)
+    base = {k: 0.5 * v for k, v in x.items()}
+    want_d = JA.apply_buffered_deltas(
+        {k: jnp.asarray(v) for k, v in g.items()}, jx,
+        {k: jnp.asarray(v) for k, v in base.items()}, jnp.asarray(dw))
+    got_d = TA.apply_buffered_deltas(params_from_numpy(g), tx,
+                                     params_from_numpy(base), dw)
+    for k in x:
+        np.testing.assert_allclose(got[k].numpy(), np.asarray(want[k]),
+                                   rtol=1e-6, atol=1e-6)
+        np.testing.assert_allclose(got_w[k].numpy(), np.asarray(want_w[k]),
+                                   rtol=1e-6, atol=1e-6)
+        np.testing.assert_allclose(got_d[k].numpy(), np.asarray(want_d[k]),
+                                   rtol=1e-6, atol=1e-6)
+    assert TA.pytree_bytes(tx, 10) == JA.pytree_bytes(jx, 10)
