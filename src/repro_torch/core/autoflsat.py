@@ -12,7 +12,8 @@ Two-tier aggregation with NO central parameter server:
 Port of the JAX package's ``core/autoflsat.py`` without the energy, fault
 and deadline branches (``check_supported`` refuses those settings). Tier 1
 trains the whole constellation as one (C*spc)-wide cohort; tier 2
-aggregates the cluster models through kernel K1 when ``quant_bits > 0``.
+aggregates the cluster models through ``_aggregate``: kernel K1 when
+``quant_bits > 0``, or the robust estimator of ``FLConfig.aggregator``.
 """
 from __future__ import annotations
 
@@ -117,8 +118,8 @@ class AutoFLSat(SpaceifiedFL):
         # tier 2: all-to-all exchange -> constellation-wide model (the
         # exchanged cluster models cross ISLs quantized when quant_bits>0)
         stacked_clusters = segment_mean(trained, C)
-        self.global_params = self._aggregate(stacked_clusters,
-                                             np.full(C, float(spc)))
+        self.global_params, n_clip = self._aggregate(
+            stacked_clusters, np.full(C, float(spc)))
         self.cluster_params = _broadcast(self.global_params, C)
 
         # timing: training overlaps the exchange chain; the round ends when
@@ -136,4 +137,5 @@ class AutoFLSat(SpaceifiedFL):
                            _fleet_mean(comm_k), _fleet_mean(train_time_k),
                            acc, participants, epochs=float(e),
                            comm_s_by_sat={k: float(comm_k[k])
-                                          for k in participants})
+                                          for k in participants},
+                           clipped_updates=n_clip)

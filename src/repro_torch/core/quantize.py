@@ -30,6 +30,21 @@ def _q_leaf(x, bits):
     return q.to(torch.int32), scale
 
 
+def quantize_pytree(params, bits: int):
+    """Quantize every tensor of ``params``: (dict of int32 q, dict of
+    0-d float32 scales), one symmetric scale per tensor."""
+    qs, scales = {}, {}
+    for name, leaf in params.items():
+        qs[name], scales[name] = _q_leaf(leaf, bits)
+    return qs, scales
+
+
+def dequantize_pytree(q, scales, dtype=torch.float32):
+    """Inverse of :func:`quantize_pytree`: float(q) * scale per tensor."""
+    return {name: (qi.to(torch.float32) * scales[name]).to(dtype)
+            for name, qi in q.items()}
+
+
 def quantize_stacked(x, bits: int):
     """Per-client per-tensor quantization of one stacked leaf (K, ...).
 
@@ -47,11 +62,8 @@ def quantize_stacked(x, bits: int):
 def quantize_roundtrip(params, bits: int):
     """What the receiver of a ``bits``-bit transmission actually sees:
     quantize + dequantize every tensor (the live QuAFL wire format)."""
-    out = {}
-    for name, leaf in params.items():
-        q, s = _q_leaf(leaf, bits)
-        out[name] = q.to(torch.float32) * s
-    return out
+    q, s = quantize_pytree(params, bits)
+    return dequantize_pytree(q, s)
 
 
 def quantize_roundtrip_stacked(stacked_params, bits: int):

@@ -10,17 +10,23 @@ Augmentations: ``scheduled`` (FLSchedule, Alg. 5) and ``intra_sl``
 (FLIntraSL, Alg. 6), selected by ``FLConfig.selection``.
 
 Port of the JAX package's ``core/spaceify.py``: ``FLConfig``,
-``RoundRecord``, the shared engine ``SpaceifiedFL`` and ``FedAvgSat``
-(Alg. 1). The round clock, projections and selection are the reference's
-numpy code, so every timing, selection and byte field of a
-``RoundRecord`` comes out bitwise as there. Training and aggregation run
-in torch on the dataset's device; with ``quant_bits > 0`` every returned
-cohort is aggregated through kernel K1 (``core/aggregation.py``).
+``RoundRecord``, the shared engine ``SpaceifiedFL``, ``FedAvgSat``
+(Alg. 1), ``FedProxSat`` (Alg. 3, partial updates + proximal term; V2 adds
+a minimum-epoch floor) and ``FedBuffSat`` (Alg. 4, asynchronous buffered
+aggregation with staleness discounting). The round clock, projections and
+selection are the reference's numpy code, so every timing, selection and
+byte field of a ``RoundRecord`` comes out bitwise as there. Training and
+aggregation run in torch on the dataset's device. With ``quant_bits > 0``
+every returned cohort of a synchronous round is aggregated through kernel
+K1; ``FLConfig.aggregator`` swaps in a Byzantine-robust estimator
+(``core/aggregation.py``), whose coordinate-wise trimmed mean and median
+run through kernel K2.
 
 Not ported yet, and refused with ``NotImplementedError`` rather than
-ignored: FedProxSat and FedBuffSat, and the optional layers of the
-reference's ``FLConfig`` (``energy``, ``faults``, ``aggregator``, a finite
-``round_deadline_s``, ``max_retries``).
+ignored: the energy and fault layers of the reference's ``FLConfig``
+(``energy``, ``faults``, a finite ``round_deadline_s``, ``max_retries``).
+They come with the engine's optional-layer slice (Slice B, ROADMAP
+queue 1).
 """
 from __future__ import annotations
 
@@ -30,28 +36,33 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
-from repro_torch.core.aggregation import (quantized_weighted_average,
+from repro_torch.core.aggregation import (apply_buffered_deltas,
+                                          make_robust_aggregator,
+                                          quantized_weighted_average,
+                                          robust_apply_buffered_deltas,
                                           weighted_average)
-from repro_torch.core.client import local_sgd_clients
+from repro_torch.core.client import local_sgd, local_sgd_clients
 from repro_torch.core.contact_plan import ContactPlan
 from repro_torch.core.policy import PolicyInputs, resolve_policy, select_top
-from repro_torch.core.quantize import quantize_roundtrip, transmit_bytes
+from repro_torch.core.quantize import (quantize_roundtrip,
+                                       quantize_roundtrip_stacked,
+                                       transmit_bytes)
 from repro_torch.models.small import MODELS, accuracy
 from repro_torch.rng import TorchRandom
-from repro_torch.sim.events import (ROUND_BARRIER, TRAIN_DONE, EventQueue,
-                                    WorldTimeline)
+from repro_torch.sim.events import (CLIENT_RETURN, ROUND_BARRIER, TRAIN_DONE,
+                                    EventQueue, WorldTimeline)
 from repro_torch.sim.hardware import FleetProfile, HardwareProfile
 
-#: where the engines the port refuses will land (ROADMAP queue 1)
-NEXT_SLICE = "the next slice of the port (ROADMAP queue 1)"
+#: where the layers the port still refuses will land (ROADMAP queue 1)
+NEXT_SLICE = "the engine's optional-layer slice (Slice B, ROADMAP queue 1)"
 
 
 @dataclasses.dataclass
 class RoundRecord:
     """One completed FL round's bookkeeping (a ``SimResult`` is a list of
     these). Same fields as the reference's record; the fields of layers
-    this port does not have yet (energy, faults, deadlines, robust
-    aggregation, policy skips) stay at their defaults."""
+    this port does not have yet (energy, faults, deadlines, policy skips)
+    stay at their defaults."""
     round: int
     t_start: float
     t_end: float
@@ -85,9 +96,12 @@ class FLConfig:
     the reference's ``FLConfig`` (see its docstring for each knob).
 
     ``quant_kernel`` takes only ``"auto"`` here: the tensors' device picks
-    the route of kernel K1 (the CUDA kernel on the card, its plain version
-    on the CPU). ``seed`` seeds the engine's random source (model init and
-    minibatch order, ``repro_torch.rng``)."""
+    the route of kernels K1 and K2 (the CUDA kernel on the card, its plain
+    version on the CPU). ``aggregator``: None or "mean" keeps the plain
+    weighted mean; a name in ``ROBUST_AGGREGATORS`` ("norm_clip" |
+    "trimmed_mean" | "median" | "krum") or a ``RobustAggregator`` instance
+    swaps in a Byzantine-robust estimator. ``seed`` seeds the engine's
+    random source (model init and minibatch order, ``repro_torch.rng``)."""
     model: str = "cnn"
     clients_per_round: int = 10          # C (static cohort width)
     epochs: int = 2                      # E (FedAvg; cap for FedProx)
@@ -105,13 +119,13 @@ class FLConfig:
     max_rounds: int = 500
     seed: int = 0
     eval_every: int = 1
-    energy: Optional[object] = None      # not ported: must stay None
-    faults: Optional[object] = None      # not ported: must stay None
-    aggregator: Optional[object] = None  # not ported: None or "mean"
-    round_deadline_s: float = float("inf")  # not ported: must stay inf
+    energy: Optional[object] = None      # Slice B: must stay None
+    faults: Optional[object] = None      # Slice B: must stay None
+    aggregator: Optional[object] = None  # None | name | RobustAggregator
+    round_deadline_s: float = float("inf")  # Slice B: must stay inf
     quorum: int = 1
     late_policy: str = "carry"
-    max_retries: Optional[int] = None    # not ported: must stay None
+    max_retries: Optional[int] = None    # Slice B: must stay None
 
 
 def check_supported(cfg: FLConfig) -> None:
@@ -122,16 +136,14 @@ def check_supported(cfg: FLConfig) -> None:
         later.append("energy")
     if cfg.faults is not None:
         later.append("faults")
-    if cfg.aggregator not in (None, "mean"):
-        later.append("aggregator")
     if np.isfinite(cfg.round_deadline_s):
         later.append("round_deadline_s")
     if cfg.max_retries is not None:
         later.append("max_retries")
     if later:
         raise NotImplementedError(
-            f"FLConfig {', '.join(later)} not ported yet: the optional "
-            "engine layers come with Slice B of the port (ROADMAP queue 1)")
+            f"FLConfig {', '.join(later)} not ported yet: the energy and "
+            f"fault layers come with {NEXT_SLICE}")
     if cfg.quant_kernel != "auto":
         raise ValueError(f"quant_kernel {cfg.quant_kernel!r}: the port takes "
                          "only 'auto' (the tensors' device picks the route)")
@@ -175,19 +187,31 @@ class SpaceifiedFL:
         self.records: List[RoundRecord] = []
         self.event_stats = None
         self._tx_cache = self._tx_cache_src = None
+        # Byzantine-robust server; None keeps the plain weighted mean
+        self.aggregator = make_robust_aggregator(cfg.aggregator)
         self.policy = resolve_policy(cfg.policy, cfg.selection)
         self._policy_skips: Dict[str, int] = {}
 
     # -- client selection (space-ification consideration 1 + augments) --
-    def _projected_returns(self, t: float, epochs: float):
+    def _projected_returns(self, t: float, epochs: float, base=None):
         """Batched projection of every satellite's round at ``t``: first
         contact, uplink, ``epochs`` of training and the return contact, in
         one vectorized pass through the contact-plan arrays. Returns a dict
         of (K,) arrays (the reference's keys; the energy and fault masks
-        are all True)."""
+        are all True).
+
+        ``base``: a projection this engine already took at the same ``t``
+        (any epoch count). Its first-contact query depends only on ``t``,
+        so it is reused as it is and only the return leg re-runs
+        (FedProx's floor projection)."""
         plan = self.plan
-        avail, end, gs, valid = plan.next_contacts(t)
-        recv_end = avail + self._t_up_k
+        if base is None:
+            avail, end, gs, valid = plan.next_contacts(t)
+            recv_end = avail + self._t_up_k
+        else:
+            avail, end, gs = (base["contact_avail"], base["contact_end"],
+                              base["contact_gs"])
+            valid, recv_end = base["first_valid"], base["recv_end"]
         train_end = recv_end + self.fleet.train_time(epochs)
         if self.cfg.selection == "intra_sl":
             r_avail, r_end, r_gs, relay, r_valid = \
@@ -204,15 +228,20 @@ class SpaceifiedFL:
                 "orbit_valid": orbit_valid, "energy_ok": ones,
                 "fault_ok": ones, "first_valid": valid}
 
+    def _policy_inputs(self, proj, t: float, epochs: float) -> PolicyInputs:
+        """Bundle the batched score inputs for the selection policy."""
+        return PolicyInputs(t=float(t), epochs=float(epochs), proj=proj,
+                            fleet=self.fleet, t_up_k=self._t_up_k,
+                            t_down_k=self._t_down_k,
+                            clients_per_round=self.cfg.clients_per_round,
+                            round_deadline_s=self.cfg.round_deadline_s)
+
     def _select_from_projections(self, proj, t: float) -> List[int]:
         """The policy scores + gates the fleet, ``select_top`` picks the
         lowest ``clients_per_round`` scores, ties by satellite index."""
         cfg = self.cfg
-        decision = self.policy.decide(PolicyInputs(
-            t=float(t), epochs=float(cfg.epochs), proj=proj,
-            fleet=self.fleet, t_up_k=self._t_up_k, t_down_k=self._t_down_k,
-            clients_per_round=cfg.clients_per_round,
-            round_deadline_s=cfg.round_deadline_s))
+        decision = self.policy.decide(
+            self._policy_inputs(proj, t, cfg.epochs))
         self._policy_skips = {k: int(v) for k, v in decision.skips.items()
                               if v}
         return select_top(decision.score, decision.eligible,
@@ -231,13 +260,24 @@ class SpaceifiedFL:
         return self._tx_cache
 
     def _aggregate(self, stacked, weights):
-        """Server-side aggregation of a returned (stacked) cohort: through
-        kernel K1 with quantization on, the order-pinned weighted mean
-        otherwise."""
-        if self.cfg.quant_bits:
-            return quantized_weighted_average(stacked, weights,
-                                              self.cfg.quant_bits)
-        return weighted_average(stacked, weights)
+        """Server-side aggregation of a returned (stacked) cohort. Returns
+        ``(params, n_attenuated)``: the robust estimator's attenuated or
+        rejected row count, 0 on the plain mean.
+
+        The robust path first round-trips a quantized cohort through the
+        wire format, so the estimator sees what the radio delivered
+        (kernel K2 for the rank-based estimators, no K1). The plain path
+        runs through kernel K1 with quantization on, the order-pinned
+        weighted mean otherwise."""
+        bits = self.cfg.quant_bits
+        if self.aggregator is not None:
+            if bits:
+                stacked = quantize_roundtrip_stacked(stacked, bits)
+            return self.aggregator.aggregate(stacked, weights,
+                                             self._tx_global())
+        if bits:
+            return quantized_weighted_average(stacked, weights, bits), 0
+        return weighted_average(stacked, weights), 0
 
     # -- fixed-shape training dispatch -----------------------------------
     def _cohort_perms(self, keys, n_epochs: int):
@@ -246,10 +286,12 @@ class SpaceifiedFL:
         return torch.stack([self.rng.permutations(k, n, n_epochs)
                             for k in keys]).to(self.device)
 
-    def _train_cohort(self, sel: List[int], epochs):
+    def _train_cohort(self, sel: List[int], epochs, prox: bool = False):
         """Train ``sel`` inside a padded cohort of static width
         ``cfg.clients_per_round``. Pad slots replay client 0 with the first
-        client key and get weight 0, so they vanish from the aggregate.
+        client key, train 1 epoch and get weight 0, so they vanish from
+        the aggregate. ``epochs`` is a count or one per selected client;
+        ``prox`` adds FedProx's proximal term towards the broadcast model.
         Returns (stacked trained params (W, ...), weights (W,))."""
         cfg = self.cfg
         W, m = cfg.clients_per_round, len(sel)
@@ -260,10 +302,12 @@ class SpaceifiedFL:
         ep = np.ones(W, np.int32)
         ep[:m] = epochs
         gather = torch.as_tensor(idx, device=self.device)
+        tx_global = self._tx_global()
         trained = local_sgd_clients(
-            cfg.model, _broadcast(self._tx_global(), W), self.ds.x[gather],
+            cfg.model, _broadcast(tx_global, W), self.ds.x[gather],
             self.ds.y[gather], self._cohort_perms(keys, int(ep.max())), ep,
-            cfg.batch_size, cfg.lr)
+            cfg.batch_size, cfg.lr, mu=cfg.prox_mu if prox else 0.0,
+            global_params=tx_global if prox else None)
         n_k = np.zeros(W, np.float64)
         n_k[:m] = self.ds.n_per_client
         return trained, n_k
@@ -336,32 +380,206 @@ class FedAvgSat(SpaceifiedFL):
         trains = proj["train_end"][ks] - proj["recv_end"][ks]
         # the server waits for every delivery (wait-for-all)
         t_round_end = float(ends.max())
-        self.global_params = self._aggregate(trained, n_k)
+        self.global_params, n_clip = self._aggregate(trained, n_k)
         acc = self._accuracy(r)
         return RoundRecord(r, t, t_round_end, t_round_end - t,
                            float(np.mean(idles)), float(np.mean(comms)),
                            float(np.mean(trains)), acc, sel,
                            epochs=cfg.epochs,
                            comm_s_by_sat=dict(zip(sel, comms.tolist())),
+                           clipped_updates=n_clip,
                            policy_deferred=sum(pol_skips.values()),
                            policy_skips=pol_skips)
 
 
-class _NotPorted(SpaceifiedFL):
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(
-            f"{type(self).__name__} is not ported yet: it comes with "
-            f"{NEXT_SLICE}")
+class FedProxSat(SpaceifiedFL):
+    """Algorithm 3: partial updates — each client trains until it reaches a
+    ground station; a proximal term bounds local drift. V2 (min_epochs>0)
+    enforces a minimum-epoch floor before returning (paper §5.1.1).
 
+    Per-client epoch budgets come from ONE batched floor projection over
+    the contact plan; a selected client whose floor-epoch return contact
+    never materializes is dropped from the round (the round only fails if
+    nobody can return)."""
 
-class FedProxSat(_NotPorted):
-    """Algorithm 3 — not ported yet (raises)."""
     name = "fedprox"
 
+    def run_round(self, r, t):
+        cfg = self.cfg
+        proj = self._projected_returns(t, cfg.epochs)
+        sel = self._select_from_projections(proj, t)
+        pol_skips = self._policy_skips
+        if not sel:
+            return None
+        floor_ep = max(cfg.min_epochs, 1)
+        # the floor projection reuses the selection projection's first
+        # contacts and re-runs only the return leg; when the floor equals
+        # the selection epoch count the two coincide
+        projf = proj if floor_ep == cfg.epochs else \
+            self._projected_returns(t, floor_ep, base=proj)
+        # refilter under the floor projection through the policy's
+        # eligibility (for the built-ins this is projf["valid"])
+        floor_ok = self.policy.decide(
+            self._policy_inputs(projf, t, floor_ep)).eligible
+        sel = [k for k in sel if floor_ok[k]]
+        if not sel:
+            return None
+        ks = np.asarray(sel)
+        recv_end = projf["recv_end"][ks]
+        ep = np.clip(((projf["ret_avail"][ks] - recv_end)
+                      // self.fleet.epoch_time_s[ks]).astype(np.int64),
+                     floor_ep, cfg.max_local_epochs).astype(np.int32)
+        train_end = recv_end + self.fleet.epoch_time_s[ks] * ep
+        trained, n_k = self._train_cohort(sel, ep, prox=True)
 
-class FedBuffSat(_NotPorted):
-    """Algorithm 4 — not ported yet (raises)."""
+        ends = projf["ret_avail"][ks] + self._t_down_k[ks]
+        idles = (projf["contact_avail"][ks] - t) \
+            + np.maximum(projf["ret_avail"][ks] - train_end, 0.0)
+        comms = self._t_up_k[ks] + self._t_down_k[ks]
+        trains = train_end - recv_end
+        # the server waits for every delivery (wait-for-all)
+        t_round_end = float(ends.max())
+        self.global_params, n_clip = self._aggregate(trained, n_k)
+        acc = self._accuracy(r)
+        return RoundRecord(r, t, t_round_end, t_round_end - t,
+                           float(np.mean(idles)), float(np.mean(comms)),
+                           float(np.mean(trains)), acc, sel,
+                           epochs=float(np.mean(ep)),
+                           comm_s_by_sat=dict(zip(sel, comms.tolist())),
+                           clipped_updates=n_clip,
+                           policy_deferred=sum(pol_skips.values()),
+                           policy_skips=pol_skips)
+
+
+class FedBuffSat(SpaceifiedFL):
+    """Algorithm 4: asynchronous buffered aggregation. Clients train
+    continuously between ground contacts; the server folds in updates with
+    staleness discounting and completes a "round" when the buffer holds
+    ``buffer_size`` updates. The flush is one stacked delta reduction
+    (``apply_buffered_deltas``, or the robust estimator's).
+
+    Pending deliveries live on a deterministic ``EventQueue`` of
+    CLIENT_RETURN events ordered ``(t, priority, sat, seq)``. Each
+    processed return trains one client (``local_sgd``, always with the
+    proximal term towards the version it picked up) with one key from the
+    random source's ``event_key``, in pop order."""
+
     name = "fedbuff"
+
+    def _flush_buffer(self, buf) -> int:
+        """Fold a full buffer into the global model; returns the robust
+        estimator's attenuated row count (0 on the plain flush)."""
+        names = list(self.global_params)
+        stacked_new = {k: torch.stack([b[0][k] for b in buf])
+                       for k in names}
+        stacked_base = {k: torch.stack([b[1][k] for b in buf])
+                        for k in names}
+        wgts = np.asarray([b[2] for b in buf], np.float32)
+        if self.aggregator is not None:
+            self.global_params, n_clip = robust_apply_buffered_deltas(
+                self.global_params, stacked_new, stacked_base, wgts,
+                self.aggregator)
+            return n_clip
+        self.global_params = apply_buffered_deltas(
+            self.global_params, stacked_new, stacked_base, wgts)
+        return 0
+
+    def run(self, t0: float = 0.0, t_end: Optional[float] = None,
+            max_rounds: Optional[int] = None):
+        cfg, plan = self.cfg, self.plan
+        t_end = t_end if t_end is not None else plan.horizon_s
+        max_rounds = max_rounds or cfg.max_rounds
+        K = plan.constellation.n_sats
+        n = self.ds.n_per_client
+        ep_s = self.fleet.epoch_time_s            # (K,) per-satellite
+        queue = EventQueue()
+        timeline = WorldTimeline.for_fl(plan)
+        self.event_stats = st = timeline.stats
+        # client states: params version picked up, pickup round, epochs,
+        # idle gap between train end and the return window
+        client_params: Dict[int, dict] = {}
+        pickup_round: Dict[int, int] = {}
+        epochs_of: Dict[int, int] = {}
+        idle_of: Dict[int, float] = {}
+        # seed the fleet with one batched contact-plan pass
+        avail, _, _, valid = plan.next_contacts(np.full(K, t0))
+        recv_end_k = avail + self._t_up_k
+        ret_avail, _, _, ret_valid = plan.next_contacts(
+            np.where(valid, recv_end_k + ep_s, np.inf))
+        for k in range(K):
+            if not (valid[k] and ret_valid[k]):
+                continue
+            recv_end, ret0 = float(recv_end_k[k]), float(ret_avail[k])
+            ep = int(np.clip((ret0 - recv_end) // ep_s[k], 1,
+                             cfg.max_local_epochs))
+            queue.push(ret0 + float(self._t_down_k[k]), CLIENT_RETURN, key=k)
+            client_params[k] = self._tx_global()
+            pickup_round[k] = 0
+            epochs_of[k] = ep
+            idle_of[k] = max(ret0 - (recv_end + ep * float(ep_s[k])), 0.0)
+
+        buf, r = [], 0
+        t_round_start = t0
+        idle_acc, comm_acc, train_acc, n_ev = 0.0, 0.0, 0.0, 0
+        comm_by: Dict[int, float] = {}
+        while queue and r < max_rounds:
+            ev = queue.pop()
+            t_ret, k = ev.t, ev.key
+            if t_ret > t_end:
+                break
+            timeline.advance_through(t_ret)
+            st.add(CLIENT_RETURN)
+            t_up, t_down = float(self._t_up_k[k]), float(self._t_down_k[k])
+            train_s = epochs_of[k] * float(ep_s[k])
+            perms = self.rng.permutations(self.rng.event_key(), n,
+                                          epochs_of[k])
+            trained = local_sgd(cfg.model, client_params[k], self.ds.x[k],
+                                self.ds.y[k], perms, epochs_of[k],
+                                cfg.batch_size, cfg.lr, mu=cfg.prox_mu,
+                                global_params=client_params[k])
+            if cfg.quant_bits:      # the returned model crosses the radio
+                trained = quantize_roundtrip(trained, cfg.quant_bits)
+            stale = r - pickup_round[k]
+            wgt = (1.0 + stale) ** (-cfg.staleness_exponent)
+            buf.append((trained, client_params[k], wgt))
+            comm_acc += t_up + t_down
+            comm_by[k] = comm_by.get(k, 0.0) + t_up + t_down
+            train_acc += train_s
+            idle_acc += idle_of.get(k, 0.0)
+            n_ev += 1
+            st.add(TRAIN_DONE)
+            # the client picks up the current global at this contact and
+            # trains on until its next return window
+            recv_end = t_ret + t_up
+            nxt = self.plan.next_contact(k, recv_end + float(ep_s[k]))
+            if nxt is not None:
+                ep = int(np.clip((nxt[0] - recv_end) // ep_s[k], 1,
+                                 cfg.max_local_epochs))
+                queue.push(float(nxt[0]) + t_down, CLIENT_RETURN, key=k)
+                client_params[k] = self._tx_global()
+                pickup_round[k] = r
+                epochs_of[k] = ep
+                idle_of[k] = max(nxt[0] - (recv_end + ep * float(ep_s[k])),
+                                 0.0)
+
+            if len(buf) >= cfg.buffer_size:
+                st.add(ROUND_BARRIER)
+                n_clip = self._flush_buffer(buf)
+                buf = []
+                acc = self._accuracy(r)
+                self.records.append(RoundRecord(
+                    r, t_round_start, t_ret, t_ret - t_round_start,
+                    idle_acc / max(n_ev, 1), comm_acc / max(n_ev, 1),
+                    train_acc / max(n_ev, 1), acc, [],
+                    epochs=float(np.mean(list(epochs_of.values())))
+                    if epochs_of else 0.0,
+                    comm_s_by_sat=comm_by, clipped_updates=n_clip))
+                t_round_start = t_ret
+                idle_acc = comm_acc = train_acc = 0.0
+                comm_by = {}
+                n_ev = 0
+                r += 1
+        return self.records
 
 
 ALGORITHMS = {

@@ -15,6 +15,9 @@ model init (``models/small.py``, seed = ``FLConfig.seed``)
 training order (``core/spaceify.py``, ``core/autoflsat.py``)
     ``round_keys(m)`` — the reference's ``split(self.key, m + 1)``: the
     engine key advances, ``m`` client keys come back;
+    ``event_key()`` — FedBuff's ``self.key, sub = split(self.key)`` at
+    each processed client return: the engine key advances, one client
+    key comes back;
     ``permutations(key, n, n_epochs)`` — per epoch ``k, sub = split(k)``
     then ``permutation(sub, n)``.
 
@@ -76,6 +79,10 @@ class TorchRandom:
     def round_keys(self, m: int) -> list:
         """Advance the engine key and return ``m`` client keys."""
         return torch.randint(0, 2 ** 62, (m,), generator=self.g).tolist()
+
+    def event_key(self):
+        """Advance the engine key and return one client key."""
+        return int(torch.randint(0, 2 ** 62, (1,), generator=self.g))
 
     def permutations(self, key, n: int, n_epochs: int):
         """(n_epochs, n) int64: the client's minibatch order per epoch."""

@@ -7,7 +7,8 @@ explicit hardware profiles (``repro_torch.sim.hardware``).
 
 Port of the JAX package's ``sim/flystack.py``. ``FLySTacK`` takes
 ``device=`` (default the card; raises if it is absent): the visibility
-series, the dataset, the models and kernel K1 run there.
+series, the dataset, the models and the aggregation kernels (K1, K2)
+run there.
 """
 from __future__ import annotations
 
@@ -31,7 +32,7 @@ class SimConfig:
     same fields and defaults as the reference's ``SimConfig``.
 
     ``algorithm``: key in ``repro_torch.core.spaceify.ALGORITHMS`` or
-    "autoflsat" (the FedProx and FedBuff keys raise until their slice).
+    "autoflsat".
     ``seed``: dataset seed (``fl.seed`` drives model init and training)."""
     algorithm: str = "fedavg"            # key in ALGORITHMS or "autoflsat"
     n_clusters: int = 2

@@ -22,7 +22,9 @@ def test_module_list_covers_the_slice():
     for m in ("repro_torch", "repro_torch.rng", "repro_torch.convert",
               "repro_torch.quickstart", "repro_torch.core.spaceify",
               "repro_torch.core.autoflsat", "repro_torch.sim.flystack",
-              "repro_torch.kernels.quant_agg", "repro_torch.kernels._build"):
+              "repro_torch.kernels.quant_agg", "repro_torch.kernels._build",
+              "repro_torch.kernels.trimmed_agg", "repro_torch.kernels.ops",
+              "repro_torch.core.aggregation", "repro_torch.core.quantize"):
         assert m in mods
 
 

@@ -13,6 +13,7 @@ import torch
 
 from repro_torch.core.aggregation import quantized_weighted_average
 from repro_torch.kernels import quant_agg as K1
+from repro_torch.kernels import trimmed_agg as K2
 
 
 def _need_cuda():
@@ -61,3 +62,61 @@ def test_quantized_weighted_average_card_matches_cpu():
     for k in leaves:
         torch.testing.assert_close(card[k].cpu(), cpu[k], rtol=1e-5,
                                    atol=1e-6)
+
+
+def _rank_weights(k, kind, m=None):
+    """Rank weights of the trimmed mean (trim 0.2) or the median over the
+    first m of k ranks (the valid rows; the rest are +inf pads)."""
+    m = k if m is None else m
+    rw = np.zeros(k, np.float32)
+    if kind == "median":
+        rw[(m - 1) // 2] += 0.5
+        rw[m // 2] += 0.5
+    else:
+        lo = min(int(0.2 * m), max((m - 1) // 2, 0))
+        rw[lo:m - lo] = 1.0 / (m - 2 * lo)
+    return rw
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["trimmed_mean", "median"])
+@pytest.mark.parametrize("n,k", [(7, 1), (2049, 2), (100_003, 4), (4608, 5),
+                                 (200_704, 10), (2049, 33), (7, 100)])
+def test_trimmed_agg_stacked_kernel_matches_plain(n, k, kind):
+    """K2 on the card against its plain version, with +inf pad rows at
+    zero-weight ranks (k > 2) and one NaN coordinate, which sorts last."""
+    _need_cuda()
+    rng = np.random.default_rng(n + k)
+    x = rng.standard_normal((k, n)).astype(np.float32)
+    m = k - 2 if k > 2 else k
+    x[m:] = np.inf
+    x[0, n // 2] = np.nan
+    rw = _rank_weights(k, kind, m)
+    xt, rwt = torch.from_numpy(x).cuda(), torch.from_numpy(rw).cuda()
+    before = K2.launches
+    got = K2.trimmed_agg_stacked(xt, rwt)
+    torch.cuda.synchronize()
+    assert K2.launches == before + 1
+    want = K2.trimmed_agg_stacked_plain(xt, rwt)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6,
+                               equal_nan=True)
+    assert torch.isfinite(got).sum() >= n - 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [7, 2049, 200_704, 100_003])
+def test_quant_agg_kernel_matches_plain(n):
+    """K3 on the card against its plain version, with a Python weight and
+    a 0-d CUDA tensor as scale."""
+    _need_cuda()
+    rng = np.random.default_rng(n)
+    acc = torch.from_numpy(rng.standard_normal(n).astype(np.float32)).cuda()
+    q = torch.from_numpy(rng.integers(-511, 512, n).astype(np.int32)).cuda()
+    scale = torch.tensor(3e-3, device="cuda")
+    before = K1.single_launches
+    got = K1.quant_agg(acc, q, scale, 0.25)
+    torch.cuda.synchronize()
+    assert K1.single_launches == before + 1
+    ws = torch.stack([torch.tensor(0.25, device="cuda"), scale])
+    torch.testing.assert_close(got, K1.quant_agg_plain(acc, q, ws),
+                               rtol=1e-5, atol=1e-6)

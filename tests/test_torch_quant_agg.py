@@ -1,11 +1,13 @@
-"""Port parity: kernel K1 (``quant_agg_stacked``), QuAFL quantization and
-the plain aggregation half of ``repro_torch`` against the JAX package.
+"""Port parity: kernels K1 (``quant_agg_stacked``) and K3 (``quant_agg``),
+QuAFL quantization and the plain aggregation half of ``repro_torch``
+against the JAX package.
 
-On the CPU the K1 wrapper takes its plain version, which is held here
+On the CPU each wrapper takes its plain version, which is held here
 against the Pallas kernel (interpret mode) and the jnp oracle at the
-reference's own bar, rtol/atol 1e-5 (``tests/test_quant_agg_stacked.py``).
-The CUDA kernel itself is held against the plain version on the card by
-``tests/test_torch_kernels.py`` and ``chip_smoke.py``."""
+reference's own bar (``tests/test_quant_agg_stacked.py``,
+``tests/test_kernels.py``). The CUDA kernels themselves are held against
+the plain versions on the card by ``tests/test_torch_kernels.py`` and
+``chip_smoke.py``."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -14,10 +16,11 @@ import torch
 
 from repro.core import aggregation as JA
 from repro.core import quantize as JQ
-from repro.kernels import ops
+from repro.kernels import ops, ref
 from repro_torch.convert import params_from_numpy
 from repro_torch.core import aggregation as TA
 from repro_torch.core import quantize as TQ
+from repro_torch.kernels import ops as TOPS
 from repro_torch.kernels import quant_agg as K1
 
 torch.set_num_threads(1)
@@ -165,3 +168,92 @@ def test_segment_means_and_buffered_deltas_match_reference():
         np.testing.assert_allclose(got_d[k].numpy(), np.asarray(want_d[k]),
                                    rtol=1e-6, atol=1e-6)
     assert TA.pytree_bytes(tx, 10) == JA.pytree_bytes(jx, 10)
+
+
+@pytest.mark.parametrize("n", [7, 2048, 2049, 100_003])
+def test_plain_k3_matches_reference(n):
+    """K3's plain version against the jnp oracle and the Pallas kernel
+    (interpret mode) at the reference's bar (``tests/test_kernels.py``),
+    with Python scalars and with 0-d tensors as scale and weight."""
+    rng = np.random.default_rng(n)
+    acc = rng.standard_normal(n).astype(np.float32)
+    q = rng.integers(-127, 127, n).astype(np.int32)
+    want = np.asarray(ref.quant_agg_ref(jnp.asarray(acc), jnp.asarray(q),
+                                        0.01, 0.25))
+    pallas = np.asarray(ops.quantized_weighted_accumulate(
+        jnp.asarray(acc), jnp.asarray(q), 0.01, 0.25, interpret=True))
+    ta, tq = torch.from_numpy(acc), torch.from_numpy(q)
+    before = K1.single_launches
+    for scale, weight in ((0.01, 0.25),
+                          (torch.tensor(0.01), torch.tensor(0.25))):
+        got = TOPS.quantized_weighted_accumulate(ta, tq, scale, weight)
+        np.testing.assert_allclose(got.numpy(), want, rtol=1e-6, atol=1e-6)
+        np.testing.assert_allclose(got.numpy(), pallas, rtol=1e-6, atol=1e-6)
+    assert K1.single_launches == before
+
+
+def test_k3_wrapper_checks_inputs():
+    acc, q, _ = (torch.from_numpy(a) for a in _inputs(64, 1, 3))
+    q = q[0].contiguous()
+    with pytest.raises(TypeError):
+        K1.quant_agg(acc, q.to(torch.int64), 0.1, 1.0)
+    with pytest.raises(ValueError):
+        K1.quant_agg(acc, q[:32], 0.1, 1.0)
+    with pytest.raises(ValueError):
+        K1.quant_agg(acc[::2], q[::2], 0.1, 1.0)
+    with pytest.raises(ValueError):
+        K1.quant_agg(acc, q, torch.ones(2), 1.0)
+    assert K1.quant_agg(acc, q, 0.1, 1.0).shape == acc.shape
+
+
+def test_quantize_pytree_bitwise():
+    rng = np.random.default_rng(8)
+    p = {"a": rng.standard_normal((65, 3)).astype(np.float32),
+         "b": np.linspace(-2.0, 2.0, 31).astype(np.float32)}
+    qj, sj = JQ.quantize_pytree({k: jnp.asarray(v) for k, v in p.items()}, 8)
+    qt, st = TQ.quantize_pytree(params_from_numpy(p), 8)
+    dj, dt = JQ.dequantize_pytree(qj, sj), TQ.dequantize_pytree(qt, st)
+    for k in p:
+        np.testing.assert_array_equal(qt[k].numpy(), np.asarray(qj[k]))
+        np.testing.assert_array_equal(st[k].numpy(), np.asarray(sj[k]))
+        np.testing.assert_array_equal(dt[k].numpy(), np.asarray(dj[k]))
+        assert qt[k].dtype == torch.int32 and st[k].dim() == 0
+
+
+def test_quantized_inplace_aggregate_matches_reference():
+    """The streamed in-place aggregation (K3 per leaf and model) against
+    the JAX one on the case of ``tests/test_kernels.py``: three 8-bit
+    models, equal weights."""
+    rng = np.random.default_rng(0)
+    models = [{"w": rng.standard_normal(300).astype(np.float32),
+               "b": rng.standard_normal((4, 5)).astype(np.float32)}
+              for _ in range(3)]
+    jq, js = zip(*(JQ.quantize_pytree({k: jnp.asarray(v)
+                                       for k, v in m.items()}, 8)
+                   for m in models))
+    want = ops.quantized_inplace_aggregate(list(jq), list(js),
+                                           [1.0, 1.0, 1.0], interpret=True)
+    tq, ts = zip(*(TQ.quantize_pytree(params_from_numpy(m), 8)
+                   for m in models))
+    got = TOPS.quantized_inplace_aggregate(list(tq), list(ts),
+                                           [1.0, 1.0, 1.0])
+    deq = [TQ.dequantize_pytree(q, s) for q, s in zip(tq, ts)]
+    for k in want:
+        np.testing.assert_allclose(got[k].numpy(), np.asarray(want[k]),
+                                   rtol=1e-5, atol=1e-6)
+        np.testing.assert_allclose(got[k].numpy(),
+                                   (sum(d[k] for d in deq) / 3).numpy(),
+                                   rtol=1e-5, atol=1e-6)
+
+
+def test_inplace_aggregate_matches_reference():
+    rng = np.random.default_rng(9)
+    ups = [({"w": rng.standard_normal((6, 7)).astype(np.float32)}, w)
+           for w in (1.0, 3.0, 0.5)]
+    want = JA.inplace_aggregate(({"w": jnp.asarray(p["w"])}, w)
+                                for p, w in ups)
+    got = TA.inplace_aggregate((params_from_numpy(p), w) for p, w in ups)
+    np.testing.assert_allclose(got["w"].numpy(), np.asarray(want["w"]),
+                               rtol=1e-6, atol=1e-6)
+    with pytest.raises(ValueError, match="no updates"):
+        TA.inplace_aggregate([])

@@ -87,6 +87,11 @@ class JaxRandom:
         self.key = ks[0]
         return [ks[i] for i in range(1, m + 1)]
 
+    def event_key(self):
+        # FedBuff: ``self.key, sub = split(self.key)`` per client return
+        self.key, sub = jax.random.split(self.key)
+        return sub
+
     def permutations(self, key, n, n_epochs):
         out, k = [], key
         for _ in range(n_epochs):
@@ -197,23 +202,32 @@ def test_default_source_dataset_is_seeded_and_skewed():
 
 
 def test_port_refuses_what_it_does_not_have(plans):
+    """Every engine of ``ALGORITHMS`` and every aggregator constructs; the
+    layers still to port (energy, faults, a finite deadline, max_retries)
+    raise, and so does a kernel route other than 'auto'."""
+    from repro_torch.core.aggregation import ROBUST_AGGREGATORS
     from repro_torch.core.spaceify import ALGORITHMS, FedAvgSat
     from repro_torch.data.synthetic import make_federated_dataset
     ds = make_federated_dataset("femnist", 10, 16, device="cpu")
-    for alg in ("fedprox", "fedprox_sch", "fedprox_schv2", "fedprox_intrasl",
-                "fedbuff"):
-        cls, over = ALGORITHMS[alg]
-        with pytest.raises(NotImplementedError, match="next slice"):
-            cls(plans[1], SMALLSAT_SBAND, ds, FLConfig(batch_size=16))
+    for alg, (cls, over) in ALGORITHMS.items():
+        for agg in (None, "mean", *ROBUST_AGGREGATORS):
+            eng = cls(plans[1], SMALLSAT_SBAND, ds,
+                      dataclasses.replace(FLConfig(batch_size=16,
+                                                   aggregator=agg), **over))
+            assert eng.name == alg.split("_")[0]
+            assert (eng.aggregator is None) == (agg in (None, "mean"))
     for bad in (dict(energy=object()), dict(faults=object()),
-                dict(aggregator="median"), dict(round_deadline_s=3600.0),
-                dict(max_retries=2)):
-        with pytest.raises(NotImplementedError):
-            FedAvgSat(plans[1], SMALLSAT_SBAND, ds,
-                      FLConfig(batch_size=16, **bad))
+                dict(round_deadline_s=3600.0), dict(max_retries=2)):
+        for cls, over in ALGORITHMS.values():
+            with pytest.raises(NotImplementedError, match="Slice B"):
+                cls(plans[1], SMALLSAT_SBAND, ds,
+                    FLConfig(batch_size=16, **bad))
     with pytest.raises(ValueError, match="auto"):
         FedAvgSat(plans[1], SMALLSAT_SBAND, ds,
                   FLConfig(batch_size=16, quant_kernel="pallas"))
+    with pytest.raises(ValueError, match="unknown aggregator"):
+        FedAvgSat(plans[1], SMALLSAT_SBAND, ds,
+                  FLConfig(batch_size=16, aggregator="huber"))
     assert len(ALGORITHMS) == 8
 
 
