@@ -23,6 +23,19 @@ Phases, each printing its own line; any failure exits non-zero:
                   K1 none), plain FedBuff neither;
   7. in-place   — the streamed in-place aggregation of one 10-bit cohort
                   through K3 against K1's cohort aggregation;
+  8. LM kernels — K4 ssd_chunk (float32) and K5 swa_attention (bfloat16
+                  and float32) against their plain versions on the card,
+                  at the smoke shapes and at the full-width serving
+                  shapes, timed beside the plain version, the bound and
+                  (K5) ``scaled_dot_product_attention``;
+  9. serving    — ``repro_torch.launch.serve.generate`` (prefill, cache
+                  handoff, 16 greedy tokens) at mamba2-1.3b (the whole
+                  published config, ssm_impl="pallas": K4) and
+                  mixtral-8x22b (full widths, 2 layers, attn_impl="flash":
+                  K5), bfloat16: launch counts, prefill seconds, decode
+                  tokens/s, peak memory; the prefill's last-token logits
+                  against the plain routes on the card; the smoke
+                  configs' greedy tokens, card against CPU, in float32;
 and then the ``kernels`` JSON line, the card's name and power limit, and
 the result line. Each path runs with every launch count set to 0 just
 before it and read just after. Details go to
@@ -38,6 +51,7 @@ import statistics
 import subprocess
 import sys
 import time
+import warnings
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -45,6 +59,15 @@ sys.path.insert(0, str(ROOT / "src"))
 
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM HBM3 (NVIDIA data sheet)
 FP32_FLOPS_PER_S = 67e12        # H100 SXM float32, no tensor cores
+BF16_FLOPS_PER_S = 989e12       # H100 SXM bfloat16 tensor cores, dense
+# Full-width serving shapes of phase 9: mamba2-1.3b prefill of 4 x 1024
+# tokens (K4: b, nc, c, h, p, g, n) and mixtral-8x22b prefill of 4 x 8192
+# tokens (K5: B, L, H, KH, hd, window).
+K4_FULL = (4, 4, 256, 64, 64, 1, 128)
+K5_FULL = (4, 8192, 48, 8, 128, 4096)
+SERVE_BATCH, SERVE_GEN = 4, 16
+SERVE_RUNS = (("mamba2-1.3b", 1024, 0, {"ssm_impl": "pallas"}),
+              ("mixtral-8x22b", 8192, 2, {"attn_impl": "flash"}))
 # Accuracy is a count over 512 test samples. Card and CPU train the same
 # model on the same data and draws, but convolutions and reductions round
 # in another order. In the first rounds that moves only samples whose top
@@ -99,10 +122,10 @@ def ptxas_summary(log: str) -> str:
     return "; ".join(out)
 
 
-def time_ms(torch, fn, reps=200, trials=7):
+def time_ms(torch, fn, reps=200, trials=7, warmup=10):
     """Median over ``trials`` of the mean per-call time of ``reps`` calls,
-    with CUDA events, after a warm-up."""
-    for _ in range(10):
+    with CUDA events, after ``warmup`` calls."""
+    for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     per = []
@@ -220,14 +243,14 @@ def rank_weights(torch, k, kind, m):
     return torch.from_numpy(rw).cuda()
 
 
-def timed_set(torch, impls):
+def timed_set(torch, impls, **reps):
     """Eager and CUDA-graph time of each of ``impls`` {key: fn}: "key" and
-    "key" with "ms" -> "graph_ms"."""
+    "key" with "ms" -> "graph_ms"; ``reps`` go to ``time_ms``."""
     tot = {}
     for key, fn in impls.items():
-        tot[key] = time_ms(torch, fn)
+        tot[key] = time_ms(torch, fn, **reps)
         tot[key.replace("ms", "graph_ms")] = time_ms(
-            torch, captured(torch, fn).replay)
+            torch, captured(torch, fn).replay, **reps)
     return tot
 
 
@@ -348,6 +371,346 @@ def k3_phase(torch, qa):
     return max_err, timing, rows
 
 
+def ssd_inputs(torch, shape, gen):
+    """K4's inputs on the card, drawn as tests/test_kernels.py draws them:
+    dt post-softplus, A < 0, B and C at group width."""
+    b, nc, c, h, p, g, n = shape
+
+    def rn(*sh):
+        return torch.randn(sh, device="cuda", generator=gen)
+    dt = torch.nn.functional.softplus(rn(b, nc, c, h))
+    return (rn(b, nc, c, h, p), dt, -torch.exp(rn(h) * 0.3),
+            rn(b, nc, c, g, n) * 0.5, rn(b, nc, c, g, n) * 0.5)
+
+
+def k4_cost(shape):
+    """(operations, bytes) of one K4 call: per (b, chunk, head) C.B, the
+    decay-and-dt scaling and W.x over the c(c+1)/2 pairs j <= i, and the
+    state's x^T (B scaled); each input read once, each output written
+    once (float32)."""
+    b, nc, c, h, p, g, n = shape
+    pairs = c * (c + 1) // 2
+    ops = b * nc * h * (pairs * (2 * n + 2 * p + 3) + c * (2 * p * n + n + 2))
+    nbytes = 4 * (2 * b * nc * c * h * p + b * nc * c * h + h
+                  + 2 * b * nc * c * g * n + b * nc * h * p * n)
+    return ops, nbytes
+
+
+def k4_phase(torch, K4):
+    """K4 against its plain version on the card (rtol = atol = 2e-4, the
+    CPU parity bar): tests/test_kernels.py's three shapes, B and C
+    head-repeated, a ragged chunk, the mamba2 smoke serving shape (4 x 24
+    tokens) and the full-width prefill shape; then timed at the full
+    shape."""
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    cases = [(1, 4, 16, 2, 16, 1, 16), (2, 4, 32, 4, 32, 2, 32),
+             (1, 3, 32, 2, 64, 1, 128), (2, 2, 32, 4, 32, 4, 32),
+             (1, 2, 100, 4, 64, 2, 32), (4, 1, 24, 16, 32, 1, 32), K4_FULL]
+    max_err, rows = 0.0, []
+    for shape in cases:
+        args = ssd_inputs(torch, shape, gen)
+        y, st = K4.ssd_chunk(*args)
+        y_want, st_want = K4.ssd_chunk_plain(*args)
+        torch.cuda.synchronize()
+        ok_y, err_y = _close(torch, y, y_want, 2e-4, 2e-4)
+        ok_s, err_s = _close(torch, st, st_want, 2e-4, 2e-4)
+        err = max(err_y, err_s)
+        rows.append({"shape": shape, "max_abs_err": err, "ok": ok_y and ok_s})
+        if not (ok_y and ok_s):
+            raise AssertionError(f"ssd_chunk {shape}: max |kernel - plain| "
+                                 f"y {err_y}, states {err_s}")
+        max_err = max(max_err, err)
+    args = ssd_inputs(torch, K4_FULL, gen)
+    timing = timed_set(torch, {
+        "ms": lambda: K4.ssd_chunk(*args),
+        "plain_ms": lambda: K4.ssd_chunk_plain(*args),
+    }, reps=10, trials=5, warmup=2)
+    ops, nbytes = k4_cost(K4_FULL)
+    timing.update(ops=ops, bytes=nbytes,
+                  bound_ms=max(nbytes / HBM_BYTES_PER_S,
+                               ops / FP32_FLOPS_PER_S) * 1e3,
+                  bound_by="operations" if ops / FP32_FLOPS_PER_S
+                  > nbytes / HBM_BYTES_PER_S else "bytes")
+    return max_err, timing, rows
+
+
+def k5_cost(B, L, H, KH, hd, window, itemsize):
+    """(visible pairs, operations, bytes) of one K5 call: 2 hd
+    multiply-adds per visible (query, key) pair for q.k and as many for
+    p.v; q, k, v read once and the output written once."""
+    vis = sum(min(i + 1, window) if window else i + 1 for i in range(L))
+    pairs = B * H * vis
+    nbytes = itemsize * (2 * B * L * H + 2 * B * L * KH) * hd
+    return pairs, 4 * hd * pairs, nbytes
+
+
+def k5_slices(torch, K5, q, k, v, window):
+    """K5's plain version at a full shape, one (batch, kv head) slice at a
+    time (attention is independent per batch row and kv group; the plain
+    version's (L, L) scores of the whole batch would not fit the card)."""
+    rep = q.shape[2] // k.shape[2]
+    return [((b, kh), K5.swa_attention_plain(
+        q[b:b + 1, :, kh * rep:(kh + 1) * rep], k[b:b + 1, :, kh:kh + 1],
+        v[b:b + 1, :, kh:kh + 1], window, True))
+        for b in range(q.shape[0]) for kh in range(k.shape[2])]
+
+
+def sdpa_ms(torch, F, K5, q, k, v, window):
+    """K5's library yardstick: one ``scaled_dot_product_attention`` call
+    with the band as a boolean mask, on the memory-efficient backend (the
+    math backend would hold the (B, H, L, L) scores, 51 GB at the mixtral
+    shape). With ``enable_gqa=True`` if that backend takes it, else with
+    the kv heads repeated beforehand, outside the timed window."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    mask = K5.band_mask(q.shape[1], window, True, "cuda")
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION), \
+            warnings.catch_warnings():
+        warnings.simplefilter("ignore")   # the backend's refusal notes
+        try:
+            F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
+                                           enable_gqa=True)
+            how, args, kw = "enable_gqa=True", (qt, kt, vt), {
+                "enable_gqa": True}
+        except RuntimeError:
+            rep = q.shape[2] // k.shape[2]
+            how, kw = "kv heads repeated beforehand", {}
+            args = (qt, kt.repeat_interleave(rep, 1),
+                    vt.repeat_interleave(rep, 1))
+        ms = time_ms(torch, lambda: F.scaled_dot_product_attention(
+            *args, attn_mask=mask, **kw), reps=3, trials=3, warmup=1)
+    return {"library_ms": ms, "library_how": how}
+
+
+def k5_phase(torch, K5):
+    """K5 against its plain version on the card, float32 (2e-5) and
+    bfloat16 (2e-2; the output is rounded to bfloat16): the four window
+    cases of tests/test_kernels.py, ragged lengths, a non-causal window,
+    the mixtral smoke serving shape (4 x 24 tokens, window 64) and the
+    full-width prefill shape (compared slice by slice); then timed at the
+    full shape in bfloat16, the serving type."""
+    import torch.nn.functional as F
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    small = [(2, 128, 4, 2, 32, 0, True), (2, 128, 4, 2, 32, 48, True),
+             (2, 256, 4, 2, 32, 64, True), (2, 128, 4, 2, 32, 16, True),
+             (1, 100, 4, 2, 64, 0, True), (1, 1000, 6, 2, 128, 300, True),
+             (2, 128, 4, 1, 32, 48, False), (4, 24, 8, 2, 32, 64, True)]
+    max_err, rows = {}, []
+    for dtype in (torch.float32, torch.bfloat16):
+        tol = 2e-5 if dtype == torch.float32 else 2e-2
+        name = str(dtype).split(".")[-1]
+        for B, L, H, KH, hd, window, causal in small + [K5_FULL + (True,)]:
+            q, k, v = (torch.randn((B, L, n, hd), device="cuda",
+                                   generator=gen).to(dtype)
+                       for n in (H, KH, KH))
+            got = K5.swa_attention(q, k, v, window, causal)
+            if (B, L, H, KH, hd, window) == K5_FULL:
+                rep = H // KH
+                pairs = [(got[b:b + 1, :, kh * rep:(kh + 1) * rep], want)
+                         for (b, kh), want in k5_slices(torch, K5, q, k, v,
+                                                        window)]
+            else:
+                pairs = [(got, K5.swa_attention_plain(q, k, v, window,
+                                                      causal))]
+            torch.cuda.synchronize()
+            res = [_close(torch, a.float(), w.float(), tol, tol)
+                   for a, w in pairs]
+            ok, err = all(r[0] for r in res), max(r[1] for r in res)
+            case = (B, L, H, KH, hd, window, causal)
+            rows.append({"case": case, "dtype": name, "max_abs_err": err,
+                         "ok": ok})
+            if not ok:
+                raise AssertionError(f"swa_attention {case} {name}: max "
+                                     f"|kernel - plain| = {err}")
+            max_err[name] = max(max_err.get(name, 0.0), err)
+            del q, k, v, got, pairs
+    B, L, H, KH, hd, window = K5_FULL
+    timing = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        name = str(dtype).split(".")[-1]
+        q, k, v = (torch.randn((B, L, n, hd), device="cuda",
+                               generator=gen).to(dtype) for n in (H, KH, KH))
+        timing[f"{name}_ms"] = time_ms(
+            torch, lambda: K5.swa_attention(q, k, v, window, True),
+            reps=3, trials=3, warmup=1)
+        if dtype == torch.bfloat16:
+            timing["graph_ms"] = time_ms(torch, captured(
+                torch, lambda: K5.swa_attention(q, k, v, window, True)
+            ).replay, reps=3, trials=3, warmup=1)
+            timing["plain_ms"] = time_ms(
+                torch, lambda: k5_slices(torch, K5, q, k, v, window),
+                reps=1, trials=3, warmup=1)
+            timing.update(sdpa_ms(torch, F, K5, q, k, v, window))
+        del q, k, v
+    pairs, ops, nbytes = k5_cost(B, L, H, KH, hd, window, 2)
+    timing.update(ms=timing["bfloat16_ms"], pairs=pairs, ops=ops,
+                  bytes=nbytes,
+                  bound_ms=max(nbytes / HBM_BYTES_PER_S,
+                               ops / BF16_FLOPS_PER_S) * 1e3,
+                  bound_by="operations" if ops / BF16_FLOPS_PER_S
+                  > nbytes / HBM_BYTES_PER_S else "bytes",
+                  fp32_core_ms=ops / FP32_FLOPS_PER_S * 1e3)
+    return max_err, timing, rows
+
+
+def serve_config(name, n_layers, impl, dtype="bfloat16"):
+    """A full-width config of ``repro_torch.configs``; depth cut to
+    ``n_layers`` when it is not 0; the kernel route set as the JAX
+    package's tests set it."""
+    from repro_torch.configs import get_config
+    cfg = dataclasses.replace(get_config(name), compute_dtype=dtype, **impl)
+    return dataclasses.replace(cfg, n_layers=n_layers) if n_layers else cfg
+
+
+PLAIN_ROUTES = {"ssm_impl": "jnp", "attn_impl": "chunked"}
+# The prefill's last-token logits through the kernels against the plain
+# routes on the card. Float32: the two differ only in the order of the
+# sums inside K4 / K5, carried through up to 48 layers, so 1e-3 on logits
+# of order 1 (the CPU parity bars are 2e-4 / 3e-4 at 2 layers). Bfloat16,
+# the served type: activations are rounded to 8 bits after every op and
+# 48 random layers amplify a rounding that lands otherwise (the two
+# bfloat16 routes were 5.0% apart in relative L2 at mamba2-1.3b). So the
+# bar is on accuracy: the kernel route's relative L2 distance from the
+# float32 plain-route logits is at most BF16_ERR_RATIO times the bfloat16
+# plain route's own.
+F32_LOGIT_TOL, BF16_ERR_RATIO = 1e-3, 2.0
+
+
+def serve_phase(torch, reset_counts, read_counts):
+    """Phase 9: ``generate`` at the two full-width configs through the
+    kernels, then the plain-route and card-vs-CPU checks."""
+    from repro_torch.launch.serve import generate
+    from repro_torch.models import model as M
+    out = {}
+    for name, plen, n_layers, impl in SERVE_RUNS:
+        cfg = serve_config(name, n_layers, impl)
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        t0 = time.perf_counter()
+        params = M.init_params(cfg, gen, device="cuda")
+        prompts = torch.randint(0, cfg.vocab, (SERVE_BATCH, plen),
+                                device="cuda", generator=gen)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        n_params = sum(t.numel() for t in _leaves(params))
+        torch.cuda.reset_peak_memory_stats()
+        stats = {}
+        reset_counts()
+        tokens = generate(cfg, params, prompts, SERVE_GEN, stats=stats)
+        torch.cuda.synchronize()
+        counts = read_counts()
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        kernel_logits = stats["prefill_logits"].float()
+        want = ((0, 0, 0, cfg.n_layers, 0) if name.startswith("mamba")
+                else (0, 0, 0, 0, cfg.n_layers))
+        ok_tokens = tokens.shape == (SERVE_BATCH, plen + SERVE_GEN) \
+            and bool((tokens[:, :plen] == prompts).all()) \
+            and 0 <= int(tokens.min()) and int(tokens.max()) < cfg.vocab
+        finite = bool(torch.isfinite(kernel_logits).all())
+        plain = dataclasses.replace(cfg, **PLAIN_ROUTES)
+        lg = {("kernel", "bfloat16"): kernel_logits}
+        with torch.inference_mode():
+            for tag, c in (("plain", plain), ("kernel", cfg)):
+                for dt in ("bfloat16", "float32"):
+                    if (tag, dt) not in lg:
+                        lg[tag, dt] = M.prefill(
+                            params, dataclasses.replace(c, compute_dtype=dt),
+                            {"tokens": prompts})[0][:, -1].float()
+
+        def rel(a, b):
+            return float((lg[a] - lg[b]).norm() / lg[b].norm())
+        truth = ("plain", "float32")
+        err_k, err_p = rel(("kernel", "bfloat16"), truth), \
+            rel(("plain", "bfloat16"), truth)
+        rel_bf16 = rel(("kernel", "bfloat16"), ("plain", "bfloat16"))
+        f32_err = float((lg["kernel", "float32"] - lg[truth]).abs().max())
+        f32_ok = bool(torch.allclose(lg["kernel", "float32"], lg[truth],
+                                     rtol=F32_LOGIT_TOL, atol=F32_LOGIT_TOL))
+        rec = {"config": {"name": cfg.name, "n_layers": cfg.n_layers,
+                          "d_model": cfg.d_model, "vocab": cfg.vocab,
+                          "params": n_params, **impl},
+               "batch": SERVE_BATCH, "prompt_len": plen, "gen": SERVE_GEN,
+               "init_s": init_s, "prefill_s": stats["prefill_s"],
+               "decode_s": stats["decode_s"],
+               "decode_tokens_per_s": SERVE_BATCH * SERVE_GEN
+               / stats["decode_s"],
+               "prefill_tokens_per_s": SERVE_BATCH * plen
+               / stats["prefill_s"],
+               "peak_gib": peak, "launches": list(counts),
+               "bf16_rel_l2_vs_plain": rel_bf16,
+               "bf16_kernel_rel_l2_vs_f32": err_k,
+               "bf16_plain_rel_l2_vs_f32": err_p,
+               "f32_max_abs_vs_plain": f32_err,
+               "logit_abs_max": float(lg[truth].abs().max()),
+               "sample": tokens[0, -SERVE_GEN:].tolist()}
+        print(f"[9 {name}] {cfg.n_layers} layers, {n_params / 1e9:.3f} B "
+              f"params, batch {SERVE_BATCH} x prompt {plen} + {SERVE_GEN} "
+              f"greedy: prefill {stats['prefill_s']:.4f} s, decode "
+              f"{rec['decode_tokens_per_s']:.2f} tokens/s, peak "
+              f"{peak:.2f} GiB; launches K1-K5 {list(counts)}; last-token "
+              f"logits vs plain routes: f32 max |err| {f32_err:.3g} (bar "
+              f"rtol=atol={F32_LOGIT_TOL}); bf16 rel L2 from the f32 "
+              f"logits: kernel route {err_k:.4g}, plain route {err_p:.4g} "
+              f"(bar: kernel <= {BF16_ERR_RATIO} x plain); bf16 routes "
+              f"apart {rel_bf16:.4g}")
+        if counts != want:
+            raise AssertionError(f"{name}: launches {counts}, expected "
+                                 f"{want} (one per layer per prefill)")
+        if not (ok_tokens and finite):
+            raise AssertionError(f"{name}: tokens {tuple(tokens.shape)} ok "
+                                 f"{ok_tokens}, finite logits {finite}")
+        if err_k > BF16_ERR_RATIO * err_p or not f32_ok:
+            raise AssertionError(f"{name}: prefill logits vs plain routes: "
+                                 f"f32 max |err| {f32_err}; bf16 rel L2 "
+                                 f"from f32: kernel {err_k}, plain {err_p}")
+        out[name] = rec
+        del params, prompts, tokens, stats, lg
+        torch.cuda.empty_cache()
+    out["smoke_card_vs_cpu"] = smoke_tokens(torch, generate, M)
+    return out
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        return [t for v in tree.values() for t in _leaves(v)]
+    if isinstance(tree, tuple):
+        return [t for v in tree for t in _leaves(v)]
+    return [tree]
+
+
+def _to(tree, device):
+    if isinstance(tree, dict):
+        return {k: _to(v, device) for k, v in tree.items()}
+    if isinstance(tree, tuple):
+        return tuple(_to(v, device) for v in tree)
+    return tree.to(device)
+
+
+def smoke_tokens(torch, generate, M):
+    """The smoke configs of both families through their kernel route, in
+    float32: greedy tokens on the card equal those on the CPU (the plain
+    versions), with the same params and prompts."""
+    from repro_torch.configs import get_smoke_config
+    res = {}
+    for name, impl in (("mixtral-8x22b", {"attn_impl": "flash"}),
+                       ("mamba2-1.3b", {"ssm_impl": "pallas"})):
+        cfg = dataclasses.replace(get_smoke_config(name),
+                                  compute_dtype="float32", **impl)
+        params = M.init_params(cfg, torch.Generator().manual_seed(0),
+                               device="cpu")
+        prompts = torch.randint(0, cfg.vocab, (4, 24),
+                                generator=torch.Generator().manual_seed(1))
+        cpu = generate(cfg, params, prompts, 12)
+        card = generate(cfg, _to(params, "cuda"), prompts.cuda(), 12).cpu()
+        equal = bool(torch.equal(cpu, card))
+        res[name] = {"equal": equal, "tokens": card[0, -12:].tolist()}
+        print(f"[9 smoke {name}] greedy tokens card vs CPU (f32, batch 4 x "
+              f"24 + 12): equal {equal}")
+        if not equal:
+            raise AssertionError(f"{name} smoke: greedy tokens differ card "
+                                 f"vs CPU: {card.tolist()} vs {cpu.tolist()}")
+    return res
+
+
 def records_equal(a, b):
     """Every non-accuracy RoundRecord field equal; accuracy within
     ACC_TOL_EARLY for the first EARLY_ROUNDS rounds, ACC_TOL_LATE after."""
@@ -377,6 +740,8 @@ def main() -> int:
     from repro_torch import quickstart as qs
     from repro_torch.kernels import _build
     from repro_torch.kernels import quant_agg as qa
+    from repro_torch.kernels import ssd_scan as K4
+    from repro_torch.kernels import swa_attention as K5
     from repro_torch.kernels import trimmed_agg as ta
     from repro_torch.orbit.constellation import WalkerStar, satellite_elements
     from repro_torch.orbit.groundstations import gs_ecef
@@ -387,7 +752,8 @@ def main() -> int:
 
     t_start = time.perf_counter()
     report = {}
-    counters = ((qa, "launches"), (ta, "launches"), (qa, "single_launches"))
+    counters = ((qa, "launches"), (ta, "launches"), (qa, "single_launches"),
+                (K4, "launches"), (K5, "launches"))
 
     def reset_counts():
         for mod, attr in counters:
@@ -405,7 +771,7 @@ def main() -> int:
           "breaks parity with the CPU)")
 
     t0 = time.perf_counter()
-    sources = ["quant_agg", "trimmed_agg"]
+    sources = ["quant_agg", "trimmed_agg", "ssd_scan", "swa_attention"]
     _build.build(sources)
     build_s = time.perf_counter() - t0
     report["build_s"] = build_s
@@ -503,11 +869,11 @@ def main() -> int:
                      for p in sim.algo.global_params.values())
         if not finite:
             raise AssertionError(f"{alg}: non-finite global parameters")
-    k1_main, k2_main, k3_main = read_counts()
+    k1_main, *others = read_counts()
     report["main_path_s"] = time.perf_counter() - t0
-    if k2_main or k3_main:
-        raise AssertionError(f"phase 5 launched K2 {k2_main} / K3 {k3_main} "
-                             "times; its path runs only K1")
+    if any(others):
+        raise AssertionError(f"phase 5 launched K2-K5 {others} times; its "
+                             "path runs only K1")
 
     for alg in qs.ALGORITHMS:
         res = FLySTacK(qs.quickstart_config(alg),
@@ -541,7 +907,7 @@ def main() -> int:
         res = sim.run()
         torch.cuda.synchronize()
         t_alg = time.perf_counter() - t_alg
-        n1, n2, n3 = read_counts()
+        n1, n2, n3, n4, n5 = read_counts()
         k_launch[0] += n1
         k_launch[1] += n2
         n_rounds = len(res.records)
@@ -558,8 +924,8 @@ def main() -> int:
             raise AssertionError(f"{tag}: parameters or data not on cuda")
         if not finite:
             raise AssertionError(f"{tag}: non-finite global parameters")
-        if n_rounds < 3 or (n1, n2, n3) != (want[0] * n_rounds,
-                                            want[1] * n_rounds, 0):
+        if n_rounds < 3 or (n1, n2, n3, n4, n5) != (
+                want[0] * n_rounds, want[1] * n_rounds, 0, 0, 0):
             raise AssertionError(
                 f"{tag}: launches K1 {n1}, K2 {n2}, K3 {n3} over "
                 f"{n_rounds} rounds; expected {want[0]} K1 and {want[1]} K2 "
@@ -596,7 +962,7 @@ def main() -> int:
     qs_, ss_ = zip(*(quantize_pytree(m, 10) for m in cohort))
     inplace = quantized_inplace_aggregate(list(qs_), list(ss_), weights)
     torch.cuda.synchronize()
-    n1, n2, n3 = read_counts()
+    n1, n2, n3, n4, n5 = read_counts()
     k1_ref = quantized_weighted_average(stacked, np.asarray(weights), 10)
     torch.cuda.synchronize()
     errs = {k: float((inplace[k] - k1_ref[k]).abs().max()) for k in base}
@@ -605,11 +971,44 @@ def main() -> int:
     print(f"[7 in-place] 10-bit cohort of 5 CNN models: K3 {n3} launches "
           f"(K1 {n1}, K2 {n2}); allclose to K1's aggregate (rtol=1e-5, "
           f"atol=1e-6) {close}, max |err| {max(errs.values()):.3g}")
-    if (n1, n2, n3) != (0, 0, 5 * len(base)) or not close:
+    if (n1, n2, n3, n4, n5) != (0, 0, 5 * len(base), 0, 0) or not close:
         raise AssertionError(f"in-place aggregation: launches K1 {n1}, K2 "
                              f"{n2}, K3 {n3}; allclose {close}; {errs}")
     report["inplace"] = {"launches": n3, "max_abs_err": errs}
     k3_main = n3
+
+    # -- phase 8: the LM kernels against their plain versions ------------
+    k4_err, k4_time, k4_rows = k4_phase(torch, K4)
+    report["k4_rows"], report["k4_timing"] = k4_rows, k4_time
+    print(f"[8 kernels] K4 ssd_chunk vs plain: {len(k4_rows)} shapes "
+          f"allclose (rtol=atol=2e-4), max |err| {k4_err:.3g}; at the "
+          f"mamba2-1.3b prefill shape {K4_FULL} (b,nc,c,h,p,g,n) eager / "
+          f"CUDA graph: kernel {k4_time['ms']:.4f} / "
+          f"{k4_time['graph_ms']:.4f} ms, plain {k4_time['plain_ms']:.4f} / "
+          f"{k4_time['plain_graph_ms']:.4f} ms, bound "
+          f"{k4_time['bound_ms']:.4f} ms ({k4_time['bound_by']}); no "
+          "single library call computes it")
+    k5_err, k5_time, k5_rows = k5_phase(torch, K5)
+    report["k5_rows"], report["k5_timing"] = k5_rows, k5_time
+    print(f"[8 kernels] K5 swa_attention vs plain: {len(k5_rows)} cases "
+          f"allclose (f32 2e-5, bf16 2e-2), max |err| f32 "
+          f"{k5_err['float32']:.3g}, bf16 {k5_err['bfloat16']:.3g}; at the "
+          f"mixtral-8x22b prefill shape {K5_FULL} (B,L,H,KH,hd,window), "
+          f"bf16: kernel {k5_time['ms']:.3f} / graph "
+          f"{k5_time['graph_ms']:.3f} ms, f32 kernel "
+          f"{k5_time['float32_ms']:.3f} ms, plain (32 slices) "
+          f"{k5_time['plain_ms']:.3f} ms, scaled_dot_product_attention "
+          f"{k5_time['library_ms']:.3f} ms, bound {k5_time['bound_ms']:.4f}"
+          f" ms ({k5_time['bound_by']}; {k5_time['pairs'] / 1e9:.3f} G "
+          f"visible pairs; {k5_time['fp32_core_ms']:.2f} ms at the f32 "
+          "CUDA-core rate)")
+
+    # -- phase 9: LM serving at full width through K4 and K5 -------------
+    t0 = time.perf_counter()
+    report["serve"] = serve_phase(torch, reset_counts, read_counts)
+    report["serve_s"] = time.perf_counter() - t0
+    k4_main = report["serve"]["mamba2-1.3b"]["launches"][3]
+    k5_main = report["serve"]["mixtral-8x22b"]["launches"][4]
 
     kernels = [{
         "name": "quant_agg_stacked",
@@ -666,6 +1065,43 @@ def main() -> int:
         "library": "torch.add(acc, q, alpha=w*s)",
         "shape": "one in-place aggregation: 5 models x 8 CNN leaves, "
                  "40 calls",
+    }, {
+        "name": "ssd_chunk",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
+        "replaces": "src/repro/kernels/ssd_scan.py:51",
+        "launches": k4_main,
+        "max_abs_err": k4_err,
+        "ms": k4_time["ms"],
+        "kernel_ms": k4_time["ms"],
+        "plain_ms": k4_time["plain_ms"],
+        "bound_ms": k4_time["bound_ms"],
+        "bound_by": k4_time["bound_by"],
+        "library_ms": None,
+        "graph_ms": k4_time["graph_ms"],
+        "plain_graph_ms": k4_time["plain_graph_ms"],
+        "library": None,
+        "shape": "mamba2-1.3b prefill, one layer: (b,nc,c,h,p,g,n) = "
+                 f"{K4_FULL}, float32",
+    }, {
+        "name": "swa_attention",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/swa_attention.cu",
+        "replaces": "src/repro/kernels/swa_attention.py:79",
+        "launches": k5_main,
+        "max_abs_err": max(k5_err.values()),
+        "ms": k5_time["ms"],
+        "kernel_ms": k5_time["ms"],
+        "plain_ms": k5_time["plain_ms"],
+        "bound_ms": k5_time["bound_ms"],
+        "bound_by": k5_time["bound_by"],
+        "library_ms": k5_time["library_ms"],
+        "graph_ms": k5_time["graph_ms"],
+        "float32_ms": k5_time["float32_ms"],
+        "library": "F.scaled_dot_product_attention, band mask, "
+                   "memory-efficient backend, " + k5_time["library_how"],
+        "shape": "mixtral-8x22b prefill, one layer: (B,L,H,KH,hd,window) "
+                 f"= {K5_FULL}, bfloat16",
     }]
     report["kernels"] = kernels
     report["device"] = card

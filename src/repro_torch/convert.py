@@ -1,10 +1,11 @@
 """Carry the JAX package's parameters and datasets into the port.
 
-Both take numpy arrays (``np.asarray`` of the reference's ``jax.Array``s),
+All take numpy arrays (``np.asarray`` of the reference's ``jax.Array``s),
 so a test can feed the same values to both packages. Layouts are kept as
 the reference has them: NHWC images, HWIO conv weights, dense weight
-``(7*7*32, 128)`` for the FEMNIST CNN. Labels become int64 (torch's index
-type); their values are unchanged.
+``(7*7*32, 128)`` for the FEMNIST CNN; the LM stack's ``(D, H, hd)``
+attention weights and ``(n_super, ...)`` stacked layers. Labels become
+int64 (torch's index type); their values are unchanged.
 """
 from __future__ import annotations
 
@@ -13,19 +14,35 @@ from typing import Dict
 import numpy as np
 import torch
 
+from repro_torch import resolve_device
 from repro_torch.data.synthetic import FedDataset
 
 
-def params_from_numpy(tree, device="cpu") -> Dict[str, torch.Tensor]:
+def params_from_numpy(tree, device="cuda") -> Dict[str, torch.Tensor]:
     """A flat dict of arrays (the reference's parameter pytree) -> dict of
-    float32 tensors on ``device``, same keys."""
+    float32 tensors on ``device`` (default the card), same keys."""
+    device = resolve_device(device)
     return {k: torch.tensor(np.asarray(v), device=device)
             for k, v in tree.items()}
 
 
+def lm_params_from_numpy(tree, device="cuda"):
+    """The reference's nested LM param tree (dicts, plus the ``layers``
+    tuple) -> the same tree of tensors on ``device`` (default the card),
+    same keys and dtypes."""
+    device = resolve_device(device)
+    if isinstance(tree, dict):
+        return {k: lm_params_from_numpy(v, device) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return tuple(lm_params_from_numpy(v, device) for v in tree)
+    return torch.tensor(np.asarray(tree), device=device)
+
+
 def dataset_from_numpy(x, y, x_test, y_test, n_classes: int, name: str,
-                       device="cpu") -> FedDataset:
-    """The reference's ``FedDataset`` fields -> the port's ``FedDataset``."""
+                       device="cuda") -> FedDataset:
+    """The reference's ``FedDataset`` fields -> the port's ``FedDataset``
+    on ``device`` (default the card)."""
+    device = resolve_device(device)
     as_t = lambda a, dt: torch.tensor(np.asarray(a), dtype=dt,
                                      device=device)
     return FedDataset(name=name, x=as_t(x, torch.float32),

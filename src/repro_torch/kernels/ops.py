@@ -1,5 +1,6 @@
 """Public wrappers over the port's kernels: the counterpart of the JAX
-package's ``kernels/ops.py`` for the aggregation kernels K1-K3.
+package's ``kernels/ops.py`` for the aggregation kernels K1-K3, the SSD
+scan (K4) and the sliding-window attention (K5).
 
 There is no ``mode`` or ``interpret`` argument: the tensors' device picks
 the route (the CUDA kernel on the card, its plain version on the CPU).
@@ -10,6 +11,8 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels.quant_agg import quant_agg, quant_agg_stacked
+from repro_torch.kernels.ssd_scan import ssd_chunk
+from repro_torch.kernels.swa_attention import swa_attention
 from repro_torch.kernels.trimmed_agg import trimmed_agg_stacked
 
 
@@ -45,3 +48,46 @@ def quantized_inplace_aggregate(q_models, scales, weights):
         acc = {k: quantized_weighted_accumulate(a, qm[k], sc[k], w / tot)
                for k, a in acc.items()}
     return acc
+
+
+def ssd_chunked_kernel(x, dt, A, B, C, chunk, init_state=None):
+    """Chunked SSD with the intra-chunk stage in kernel K4; the same
+    contract as ``repro_torch.models.ssm.ssd_chunked``.
+
+    x (b, l, h, p); dt (b, l, h) post-softplus; A (h,); B, C (b, l, g, n).
+    Returns (y (b, l, h, p) float32, final_state (b, h, p, n)). B and C stay
+    at group width: K4 reads each head's group, and the carried-state term
+    contracts C per group, so no head-repeated copy is made.
+    """
+    b, l, h, p = x.shape
+    g, n = B.shape[2], B.shape[3]
+    if l % chunk:
+        raise ValueError(f"sequence length {l} is not a multiple of the "
+                         f"chunk {chunk}")
+    nc, rep = l // chunk, h // g
+    xr = x.reshape(b, nc, chunk, h, p).to(torch.float32)
+    dtr = dt.reshape(b, nc, chunk, h).to(torch.float32)
+    Br = B.reshape(b, nc, chunk, g, n).to(torch.float32)
+    Cr = C.reshape(b, nc, chunk, g, n).to(torch.float32)
+    A = A.to(torch.float32).contiguous()
+    y_diag, states = ssd_chunk(xr, dtr, A, Br, Cr)
+
+    # inter-chunk recurrence + carried-state output term (linear, torch)
+    dA_cs = torch.cumsum(dtr * A, dim=2)                 # (b,nc,c,h)
+    chunk_decay = torch.exp(dA_cs[:, :, -1, :])          # (b,nc,h)
+    carry = (torch.zeros((b, h, p, n), dtype=torch.float32, device=x.device)
+             if init_state is None else init_state)
+    prev = []
+    for z in range(nc):                                  # state BEFORE chunk
+        prev.append(carry)
+        carry = carry * chunk_decay[:, z, :, None, None] + states[:, z]
+    prev = torch.stack(prev, dim=1).reshape(b, nc, g, rep, p, n)
+    y_off = torch.einsum("bzcgn,bzgrpn->bzcgrp", Cr, prev).reshape(
+        b, nc, chunk, h, p) * torch.exp(dA_cs)[..., None]
+    return (y_diag + y_off).reshape(b, l, h, p), carry
+
+
+def swa_flash_attention(q, k, v, window=0, causal=True):
+    """q (B, L, H, hd); k, v (B, L, KH, hd) GQA. Returns (B, L, H, hd) in
+    q's type (kernel K5, which reads each head's kv head in place)."""
+    return swa_attention(q, k, v, window=window, causal=causal)

@@ -1,0 +1,125 @@
+"""K4: the Mamba-2 SSD intra-chunk kernel, hand-written for Hopper.
+
+``ssd_chunk(x, dt, A, B, C) -> (y_diag, states)`` computes, per (batch,
+chunk, head), the quadratic-in-chunk part of the SSD algorithm
+(arXiv:2405.21060 §6): ``cs = cumsum(dt * A)``; ``y_diag = (C B^T ∘ L ∘
+dt) x`` with the causal decay ``L[i, j] = exp(cs[i] - cs[j])`` for j <= i;
+``states = x^T (B * dt * exp(cs[-1] - cs))``. It replaces the TPU kernel
+``src/repro/kernels/ssd_scan.py::ssd_chunk_pallas`` (Pallas). The CUDA
+source is ``csrc/ssd_scan.cu``: one launch a call, 64 query rows of one
+(batch, chunk, head) per block plus one block per slice for the state.
+
+B and C may come at group width, (b, nc, c, g, n) with g dividing h, or
+head-repeated (g = h, the reference's form); head h reads group
+h // (h / g). The inter-chunk recurrence stays framework code
+(``kernels/ops.py::ssd_chunked_kernel``), as in the reference.
+
+The device decides the route, with no fallback: a CUDA tensor launches the
+kernel (or raises), a CPU tensor takes ``ssd_chunk_plain``, the plain
+version that mirrors the reference oracle
+``src/repro/kernels/ref.py::ssd_chunk_ref``.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import _build
+
+#: kernel launches made by :func:`ssd_chunk` in this process
+launches = 0
+
+_SIGNATURES = {
+    "ssd_chunk": ([ctypes.c_void_p] * 10, ctypes.c_int),
+    "ssd_chunk_error_string": ([ctypes.c_int], ctypes.c_char_p),
+}
+
+
+def _heads(t, h):
+    """B or C at group width (b, nc, c, g, n) -> head width (b, nc, c, h, n)."""
+    rep = h // t.shape[3]
+    return t if rep == 1 else t.repeat_interleave(rep, dim=3)
+
+
+def ssd_chunk_plain(x, dt, A, B, C):
+    """Plain PyTorch version (all float32): x (b, nc, c, h, p); dt (b, nc,
+    c, h); A (h,); B, C (b, nc, c, g, n) with g dividing h. Returns
+    (y_diag (b, nc, c, h, p), states (b, nc, h, p, n))."""
+    B, C = _heads(B, x.shape[3]), _heads(C, x.shape[3])
+    dA = dt * A
+    cs = torch.cumsum(dA, dim=2)
+    seg = cs[..., :, None, :] - cs[..., None, :, :]      # (b,nc,c,c,h)
+    c = dt.shape[2]
+    cmask = torch.tril(torch.ones((c, c), dtype=torch.bool,
+                                  device=x.device))
+    L = torch.where(cmask[None, None, :, :, None], torch.exp(seg), 0.0)
+    CB = torch.einsum("bzihn,bzjhn->bzijh", C, B)
+    W = CB * L * dt[:, :, None, :, :]
+    y_diag = torch.einsum("bzijh,bzjhp->bzihp", W, x)
+    decay = torch.exp(cs[:, :, -1:, :] - cs)             # (b,nc,c,h)
+    states = torch.einsum("bzchn,bzch,bzchp->bzhpn", B, dt * decay, x)
+    return y_diag, states
+
+
+def _check(x, dt, A, B, C):
+    ts = (x, dt, A, B, C)
+    if any(t.dtype != torch.float32 for t in ts):
+        raise TypeError("ssd_chunk takes float32 x, dt, A, B, C; got "
+                        + ", ".join(str(t.dtype) for t in ts))
+    if x.dim() != 5 or dt.dim() != 4 or A.dim() != 1 or B.dim() != 5 \
+            or C.shape != B.shape:
+        raise ValueError(f"shapes: x {tuple(x.shape)}, dt {tuple(dt.shape)},"
+                         f" A {tuple(A.shape)}, B {tuple(B.shape)}, C "
+                         f"{tuple(C.shape)}; expected x (b,nc,c,h,p), dt "
+                         "(b,nc,c,h), A (h,), B = C (b,nc,c,g,n)")
+    b, nc, c, h, _ = x.shape
+    g = B.shape[3]
+    if dt.shape != (b, nc, c, h) or A.shape != (h,) \
+            or B.shape[:3] != (b, nc, c) or g < 1 or h % g:
+        raise ValueError(f"shapes: x {tuple(x.shape)}, dt {tuple(dt.shape)},"
+                         f" A {tuple(A.shape)}, B {tuple(B.shape)}; dt must "
+                         "be x's (b,nc,c,h), A (h,), B (b,nc,c,g,n) with g "
+                         "dividing h")
+    if len({t.device for t in ts}) != 1:
+        raise ValueError("x, dt, A, B and C must be on one device")
+
+
+def ssd_chunk(x, dt, A, B, C):
+    """(y_diag, states) of the SSD intra-chunk stage; see the module
+    docstring. CUDA tensors launch the kernel; CPU tensors take the plain
+    version."""
+    _check(x, dt, A, B, C)
+    if x.device.type == "cpu":
+        return ssd_chunk_plain(x, dt, A, B, C)
+    if x.device.type != "cuda":
+        raise ValueError(f"ssd_chunk: no route for device {x.device}")
+    return _launch(x, dt, A, B, C)
+
+
+def _launch(x, dt, A, B, C):
+    global launches
+    # the kernel reads the other axes through their strides; a last axis
+    # that is not contiguous is copied
+    x, B, C = (t if t.stride(4) == 1 else t.contiguous() for t in (x, B, C))
+    A = A.contiguous()
+    lib = _build.library("ssd_scan", _SIGNATURES)
+    b, nc, c, h, p = x.shape
+    g, n = B.shape[3], B.shape[4]
+    y = torch.empty((b, nc, c, h, p), dtype=torch.float32, device=x.device)
+    st = torch.empty((b, nc, h, p, n), dtype=torch.float32, device=x.device)
+    if y.numel() == 0 or st.numel() == 0:
+        return y.zero_(), st.zero_()
+    dims = (ctypes.c_int64 * 7)(b, nc, c, h, p, g, n)
+    strides = (ctypes.c_int64 * 16)(*x.stride()[:4], *dt.stride(),
+                                    *B.stride()[:4], *C.stride()[:4])
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.ssd_chunk(x.data_ptr(), dt.data_ptr(), A.data_ptr(),
+                            B.data_ptr(), C.data_ptr(), y.data_ptr(),
+                            st.data_ptr(), dims, strides, stream)
+    if err != 0:
+        raise RuntimeError("ssd_chunk launch failed: "
+                           + lib.ssd_chunk_error_string(err).decode())
+    launches += 1
+    return y, st

@@ -1,0 +1,119 @@
+"""K5: sliding-window causal flash attention (forward), hand-written for
+Hopper.
+
+``swa_attention(q, k, v, window, causal)`` is softmax attention over the
+keys j that row i may see (``j <= i`` when causal, ``j > i - window`` when
+``window`` > 0), with scores scaled by ``hd ** -0.5``. It replaces the TPU
+kernel ``src/repro/kernels/swa_attention.py::swa_attention`` (Pallas) and
+the head repeat and transposes around it in the reference's
+``kernels/ops.py::swa_flash_attention``: it takes the model's layout, q
+(B, L, H, hd) and k, v (B, L, KH, hd) with KH dividing H, and reads kv head
+h // (H / KH) in place. The CUDA source is ``csrc/swa_attention.cu``: an
+online softmax over the key tiles of the band only, float32 math, inputs
+float32 or bfloat16, the output in q's type.
+
+The device decides the route, with no fallback: a CUDA tensor launches the
+kernel (or raises), a CPU tensor takes ``swa_attention_plain``, the plain
+version that mirrors the reference oracle
+``src/repro/kernels/ref.py::swa_attention_ref``.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import _build
+
+#: kernel launches made by :func:`swa_attention` in this process
+launches = 0
+
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_SIGNATURES = {
+    "swa_attention": ([ctypes.c_void_p] * 6
+                      + [ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                         ctypes.c_float, ctypes.c_void_p], ctypes.c_int),
+    "swa_attention_error_string": ([ctypes.c_int], ctypes.c_char_p),
+}
+
+
+def band_mask(l, window, causal, device):
+    """(l, l) bool, True where query row i may see key j."""
+    qpos = torch.arange(l, device=device)[:, None]
+    kpos = torch.arange(l, device=device)[None, :]
+    m = torch.ones((l, l), dtype=torch.bool, device=device)
+    if causal:
+        m = m & (kpos <= qpos)
+    if window:
+        m = m & (kpos > qpos - window)
+    return m
+
+
+def swa_attention_plain(q, k, v, window=0, causal=True):
+    """Plain PyTorch version: q (B, L, H, hd), k, v (B, L, KH, hd) ->
+    (B, L, H, hd) in q's type, computed in float32 with masked scores at
+    -1e30."""
+    h, hd = q.shape[2], q.shape[3]
+    rep = h // k.shape[2]
+    kf = k.to(torch.float32).repeat_interleave(rep, dim=2)
+    vf = v.to(torch.float32).repeat_interleave(rep, dim=2)
+    s = torch.einsum("bqhd,bkhd->bhqk", q.to(torch.float32), kf) \
+        * hd ** -0.5
+    m = band_mask(q.shape[1], window, causal, q.device)
+    s = torch.where(m, s, -1e30)
+    w = torch.softmax(s, dim=-1)
+    return torch.einsum("bhqk,bkhd->bqhd", w, vf).to(q.dtype)
+
+
+def _check(q, k, v, window):
+    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"swa_attention takes q, k, v of one type, float32 "
+                        f"or bfloat16; got {q.dtype}, {k.dtype}, {v.dtype}")
+    if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape \
+            or k.shape[:2] != q.shape[:2] or k.shape[3] != q.shape[3] \
+            or k.shape[2] < 1 or q.shape[2] % k.shape[2]:
+        raise ValueError(f"shapes: q {tuple(q.shape)}, k {tuple(k.shape)}, "
+                         f"v {tuple(v.shape)}; expected q (B,L,H,hd) and "
+                         "k = v (B,L,KH,hd) with KH dividing H")
+    if int(window) < 0:
+        raise ValueError(f"swa_attention: window {window} < 0")
+    if not (q.device == k.device == v.device):
+        raise ValueError("q, k and v must be on one device")
+
+
+def swa_attention(q, k, v, window=0, causal=True):
+    """Sliding-window (``window`` > 0) or full attention, causal or not;
+    see the module docstring. CUDA tensors launch the kernel; CPU tensors
+    take the plain version."""
+    _check(q, k, v, window)
+    if q.device.type == "cpu":
+        return swa_attention_plain(q, k, v, window, causal)
+    if q.device.type != "cuda":
+        raise ValueError(f"swa_attention: no route for device {q.device}")
+    return _launch(q, k, v, int(window), bool(causal))
+
+
+def _launch(q, k, v, window, causal):
+    global launches
+    # the kernel reads the first three axes through their strides; a last
+    # axis that is not contiguous is copied
+    q, k, v = (t if t.stride(3) == 1 else t.contiguous() for t in (q, k, v))
+    lib = _build.library("swa_attention", _SIGNATURES)
+    b, l, h, hd = q.shape
+    out = torch.empty((b, l, h, hd), dtype=q.dtype, device=q.device)
+    if out.numel() == 0:
+        return out
+    dims = (ctypes.c_int64 * 5)(b, l, h, k.shape[2], hd)
+    strides = (ctypes.c_int64 * 9)(*q.stride()[:3], *k.stride()[:3],
+                                   *v.stride()[:3])
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.swa_attention(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                                out.data_ptr(), dims, strides, window,
+                                int(causal), _DTYPES[q.dtype],
+                                hd ** -0.5, stream)
+    if err != 0:
+        raise RuntimeError("swa_attention launch failed: "
+                           + lib.swa_attention_error_string(err).decode())
+    launches += 1
+    return out

@@ -12,10 +12,14 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch import resolve_device
 
-def init_cnn(source, input_shape, n_classes, width=16, device="cpu"):
-    """Parameters of the CNN; ``source.init_normals`` (the random seam,
-    ``repro_torch.rng``) supplies the draws."""
+
+def init_cnn(source, input_shape, n_classes, width=16, device="cuda"):
+    """Parameters of the CNN on ``device`` (default the card);
+    ``source.init_normals`` (the random seam, ``repro_torch.rng``) supplies
+    the draws."""
+    device = resolve_device(device)
     h, w, c = input_shape
     f1, f2 = width, width * 2
     # two stride-2 conv blocks then dense
@@ -63,7 +67,9 @@ def apply_cnn(params, x):
     return h @ params["out"] + params["bo"]
 
 
-def init_mlp(source, input_shape, n_classes, hidden=128, device="cpu"):
+def init_mlp(source, input_shape, n_classes, hidden=128, device="cuda"):
+    """Parameters of the MLP on ``device`` (default the card)."""
+    device = resolve_device(device)
     h, w, c = input_shape
     d = h * w * c
     n1, n2 = (t.to(device) for t in source.init_normals(

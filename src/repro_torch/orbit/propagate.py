@@ -14,6 +14,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch import resolve_device
 from repro_torch.orbit.constellation import MU_EARTH, OMEGA_EARTH, WalkerStar
 
 
@@ -22,8 +23,11 @@ def f32(x, device) -> torch.Tensor:
     return torch.as_tensor(x, dtype=torch.float32, device=device)
 
 
-def eci_positions(c: WalkerStar, raan, phase, incl_rad, times, device="cpu"):
-    """Positions (T, K, 3) in meters for satellite element arrays (K,)."""
+def eci_positions(c: WalkerStar, raan, phase, incl_rad, times,
+                  device="cuda"):
+    """Positions (T, K, 3) in meters for satellite element arrays (K,),
+    on ``device`` (default the card; raises if it is absent)."""
+    device = resolve_device(device)
     a = c.radius_m
     n = torch.sqrt(f32(MU_EARTH / a ** 3, device))
     t = f32(times, device)[:, None]                        # (T, 1)
@@ -40,8 +44,10 @@ def eci_positions(c: WalkerStar, raan, phase, incl_rad, times, device="cpu"):
     return torch.stack([x, y, z], dim=-1)                  # (T, K, 3)
 
 
-def ecef_positions(c: WalkerStar, raan, phase, incl_rad, times, device="cpu"):
-    """ECI -> ECEF by earth rotation. (T, K, 3)."""
+def ecef_positions(c: WalkerStar, raan, phase, incl_rad, times,
+                   device="cuda"):
+    """ECI -> ECEF by earth rotation. (T, K, 3) on ``device``."""
+    device = resolve_device(device)
     eci = eci_positions(c, raan, phase, incl_rad, times, device)
     th = -OMEGA_EARTH * f32(times, device)
     cos_t, sin_t = torch.cos(th)[:, None], torch.sin(th)[:, None]

@@ -14,6 +14,7 @@ from typing import List, Tuple
 import numpy as np
 import torch
 
+from repro_torch import resolve_device
 from repro_torch.orbit.constellation import R_EARTH, WalkerStar
 from repro_torch.orbit.propagate import ecef_positions, eci_positions, f32
 
@@ -28,9 +29,11 @@ def _norm(v: torch.Tensor) -> torch.Tensor:
 
 def elevation_mask_series(c: WalkerStar, raan, phase, incl, times, gs,
                           min_elev_deg: float = 10.0, chunk: int = 4096,
-                          device="cpu"):
+                          device="cuda"):
     """Boolean visibility (T, K, G) numpy array: sat k visible from station
-    g at time t. The geometry runs on ``device``, one time chunk at a time."""
+    g at time t. The geometry runs on ``device`` (default the card; raises
+    if it is absent), one time chunk at a time."""
+    device = resolve_device(device)
     gs_t = f32(gs, device)                                 # (G, 3)
     min_sin = torch.sin(f32(min_elev_deg, device) * f32(np.pi / 180, device))
     kg = max(int(c.n_sats) * int(gs_t.shape[0]), 1)
@@ -51,10 +54,12 @@ def elevation_mask_series(c: WalkerStar, raan, phase, incl, times, gs,
 
 def interplane_los_series(c: WalkerStar, raan, phase, incl, times,
                           sat_a: int, sat_b: int, max_range_m: float = 6e6,
-                          chunk: int = 8192, device="cpu"):
+                          chunk: int = 8192, device="cuda"):
     """Boolean LOS (T,) between two satellites: range bound + earth not in
     the way (perpendicular distance of segment to geocenter > R_earth+50km).
+    The geometry runs on ``device`` (default the card).
     """
+    device = resolve_device(device)
     outs = []
     times = np.asarray(times)
     for i in range(0, len(times), chunk):
@@ -141,7 +146,7 @@ def windows_from_bool_tensor(vis: np.ndarray, times: np.ndarray):
 
 def access_window_arrays(c: WalkerStar, raan, phase, incl, times, gs,
                          min_elev_deg: float = 10.0, chunk: int = 4096,
-                         device="cpu"):
+                         device="cuda"):
     """Flat (sat, gs, start, end) window arrays for the whole constellation."""
     vis = elevation_mask_series(c, raan, phase, incl, times, gs,
                                 min_elev_deg, chunk=chunk, device=device)
@@ -149,7 +154,7 @@ def access_window_arrays(c: WalkerStar, raan, phase, incl, times, gs,
 
 
 def access_windows(c: WalkerStar, raan, phase, incl, times, gs,
-                   min_elev_deg: float = 10.0, device="cpu"):
+                   min_elev_deg: float = 10.0, device="cuda"):
     """Per-satellite list of (t_start, t_end, gs_index) windows, sorted."""
     sat, gsi, s, e = access_window_arrays(c, raan, phase, incl, times, gs,
                                           min_elev_deg, device=device)

@@ -24,7 +24,14 @@ def test_module_list_covers_the_slice():
               "repro_torch.core.autoflsat", "repro_torch.sim.flystack",
               "repro_torch.kernels.quant_agg", "repro_torch.kernels._build",
               "repro_torch.kernels.trimmed_agg", "repro_torch.kernels.ops",
-              "repro_torch.core.aggregation", "repro_torch.core.quantize"):
+              "repro_torch.core.aggregation", "repro_torch.core.quantize",
+              "repro_torch.configs", "repro_torch.configs.base",
+              "repro_torch.configs.mixtral", "repro_torch.configs.mamba2_1p3b",
+              "repro_torch.kernels.ssd_scan",
+              "repro_torch.kernels.swa_attention",
+              "repro_torch.models.layers", "repro_torch.models.ssm",
+              "repro_torch.models.moe", "repro_torch.models.model",
+              "repro_torch.launch.serve", "repro_torch.launch.serve_batched"):
         assert m in mods
 
 

@@ -13,6 +13,8 @@ import torch
 
 from repro_torch.core.aggregation import quantized_weighted_average
 from repro_torch.kernels import quant_agg as K1
+from repro_torch.kernels import ssd_scan as K4
+from repro_torch.kernels import swa_attention as K5
 from repro_torch.kernels import trimmed_agg as K2
 
 
@@ -120,3 +122,88 @@ def test_quant_agg_kernel_matches_plain(n):
     ws = torch.stack([torch.tensor(0.25, device="cuda"), scale])
     torch.testing.assert_close(got, K1.quant_agg_plain(acc, q, ws),
                                rtol=1e-5, atol=1e-6)
+
+
+def _ssd_inputs(b, nc, c, h, p, g, n, seed, strided=False):
+    """K4's inputs on the card, drawn as tests/test_kernels.py draws them
+    (dt post-softplus, A < 0). ``strided``: x and B are views into wider
+    rows, as the model's projections hand them over."""
+    rng = np.random.default_rng(seed)
+
+    def t(a):
+        return torch.from_numpy(a.astype(np.float32)).cuda()
+    x = t(rng.standard_normal((b, nc, c, h, p + 8 * strided)))[..., :p]
+    dt = t(np.log1p(np.exp(rng.standard_normal((b, nc, c, h)))))
+    A = t(-np.exp(rng.standard_normal(h) * 0.3))
+    B = t(rng.standard_normal((b, nc, c, g, n + 4 * strided)) * 0.5)[..., :n]
+    C = t(rng.standard_normal((b, nc, c, g, n)) * 0.5)
+    return x, dt, A, B, C
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,nc,c,h,p,g,n,strided", [
+    (1, 4, 16, 2, 16, 1, 16, False),     # tests/test_kernels.py's cases
+    (2, 4, 32, 4, 32, 2, 32, False),
+    (1, 3, 32, 2, 64, 1, 128, False),
+    (2, 2, 32, 4, 32, 4, 32, False),     # B, C pre-repeated (g = h)
+    (1, 2, 100, 4, 64, 2, 32, True),     # ragged chunk, strided views
+    (1, 2, 256, 8, 64, 1, 128, True),    # mamba2-1.3b's chunk, p and n
+])
+def test_ssd_chunk_kernel_matches_plain(b, nc, c, h, p, g, n, strided):
+    """K4 on the card against its plain version (float32; sums taken in
+    another order, so the CPU parity bar of 2e-4 applies)."""
+    _need_cuda()
+    args = _ssd_inputs(b, nc, c, h, p, g, n, c + h, strided)
+    before = K4.launches
+    y, st = K4.ssd_chunk(*args)
+    torch.cuda.synchronize()
+    assert K4.launches == before + 1
+    y_want, st_want = K4.ssd_chunk_plain(*args)
+    torch.testing.assert_close(y, y_want, rtol=2e-4, atol=2e-4)
+    torch.testing.assert_close(st, st_want, rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.cuda
+def test_ssd_chunk_kernel_no_overflow_above_the_diagonal():
+    """A = -60 makes exp(cs_i - cs_j) overflow for j > i: the kernel
+    evaluates it for j <= i only, so every output stays finite."""
+    _need_cuda()
+    x, dt, A, B, C = _ssd_inputs(1, 2, 64, 2, 16, 1, 16, 3)
+    A = torch.full_like(A, -60.0)
+    y, st = K4.ssd_chunk(x, dt, A, B, C)
+    torch.cuda.synchronize()
+    assert torch.isfinite(y).all() and torch.isfinite(st).all()
+    y_want, st_want = K4.ssd_chunk_plain(x, dt, A, B, C)
+    torch.testing.assert_close(y, y_want, rtol=2e-4, atol=2e-4)
+    torch.testing.assert_close(st, st_want, rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("l,window,causal,h,kh,hd", [
+    (128, 0, True, 4, 2, 32),            # tests/test_kernels.py's cases
+    (128, 48, True, 4, 2, 32),
+    (256, 64, True, 4, 2, 32),
+    (128, 16, True, 4, 2, 32),
+    (100, 0, True, 4, 2, 64),            # ragged last tiles
+    (1000, 300, True, 6, 2, 128),
+    (128, 48, False, 4, 1, 32),          # window, not causal
+    (64, 0, False, 2, 2, 32),
+    (8192, 4096, True, 6, 1, 128),       # mixtral-8x22b: one kv group
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_swa_attention_kernel_matches_plain(l, window, causal, h, kh, hd,
+                                            dtype):
+    """K5 on the card against its plain version; the reference's bars
+    (2e-5 float32, 2e-2 bfloat16: the output is rounded to bfloat16)."""
+    _need_cuda()
+    rng = np.random.default_rng(l + window)
+    q, k, v = (torch.from_numpy(rng.standard_normal(
+        (1, l, n, hd)).astype(np.float32)).cuda().to(dtype)
+        for n in (h, kh, kh))
+    before = K5.launches
+    got = K5.swa_attention(q, k, v, window, causal)
+    torch.cuda.synchronize()
+    assert K5.launches == before + 1 and got.dtype == dtype
+    want = K5.swa_attention_plain(q, k, v, window, causal)
+    tol = 2e-5 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)

@@ -10,13 +10,19 @@ import torch
 
 from repro.core.client import local_sgd_clients as jax_clients
 from repro.models import small as J
-from repro_torch.convert import params_from_numpy
+from repro_torch.convert import params_from_numpy as _to_torch
 from repro_torch.core.client import local_sgd, local_sgd_clients
 from repro_torch.models import small as T
 
 torch.set_num_threads(1)
 
 SHAPE, NCLS = (28, 28, 1), 62
+
+
+def params_from_numpy(tree):
+    """The reference's parameters as CPU tensors (the port's default
+    device is the card)."""
+    return _to_torch(tree, device="cpu")
 
 
 def _cnn_params(seed=0):

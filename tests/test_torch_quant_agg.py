@@ -17,13 +17,19 @@ import torch
 from repro.core import aggregation as JA
 from repro.core import quantize as JQ
 from repro.kernels import ops, ref
-from repro_torch.convert import params_from_numpy
+from repro_torch.convert import params_from_numpy as _to_torch
 from repro_torch.core import aggregation as TA
 from repro_torch.core import quantize as TQ
 from repro_torch.kernels import ops as TOPS
 from repro_torch.kernels import quant_agg as K1
 
 torch.set_num_threads(1)
+
+
+def params_from_numpy(tree):
+    """The reference's parameters as CPU tensors (the port's default
+    device is the card)."""
+    return _to_torch(tree, device="cpu")
 
 
 def _inputs(n, k, seed):

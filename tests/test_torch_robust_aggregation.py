@@ -15,12 +15,18 @@ import pytest
 import torch
 
 from repro.core import aggregation as JA
-from repro_torch.convert import params_from_numpy
+from repro_torch.convert import params_from_numpy as _to_torch
 from repro_torch.core import aggregation as TA
 
 torch.set_num_threads(1)
 
 SHAPES = {"p0": (17,), "p1": (4, 9), "p2": (3, 3, 1, 2)}
+
+
+def params_from_numpy(tree):
+    """The reference's parameters as CPU tensors (the port's default
+    device is the card)."""
+    return _to_torch(tree, device="cpu")
 
 
 def _cohort(seed, k=5, scale=1.0):
