@@ -10,7 +10,8 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels.quant_agg import quant_agg, quant_agg_stacked
+from repro_torch.kernels.quant_agg import (quant_agg, quant_agg_inplace,
+                                          quant_agg_stacked)
 from repro_torch.kernels.ssd_scan import ssd_chunk
 from repro_torch.kernels.swa_attention import swa_attention
 from repro_torch.kernels.trimmed_agg import trimmed_agg_stacked
@@ -36,17 +37,27 @@ def trimmed_stacked_combine(x, rank_weights):
 
 
 def quantized_inplace_aggregate(q_models, scales, weights):
-    """Aggregate a stream of quantized models into one float32 model, one
-    K3 launch per leaf and model (paper Fig. 7 in-place semantics, QuAFL
-    wire format). ``q_models``: list of dicts of int32 tensors; ``scales``:
-    list of dicts of scalars; ``weights``: list of floats (normalized
-    here)."""
+    """Aggregate a stream of quantized models into one float32 model (paper
+    Fig. 7 in-place semantics, QuAFL wire format). ``q_models``: list of
+    dicts of int32 tensors; ``scales``: list of dicts of scalars;
+    ``weights``: list of floats (normalized here).
+
+    The float32 accumulators are allocated once (one zeroed buffer, each
+    leaf at a 16-byte boundary) and updated in place, one K3 launch per
+    model for all its leaves; the returned dict holds views of that buffer.
+    No tensor the caller passed in is modified."""
     tot = sum(weights)
-    acc = {k: torch.zeros(q.shape, dtype=torch.float32, device=q.device)
-           for k, q in q_models[0].items()}
+    keys = list(q_models[0])
+    first = [q_models[0][k] for k in keys]
+    spans = [(q.numel() + 3) // 4 * 4 for q in first]
+    buf = torch.zeros(sum(spans), dtype=torch.float32, device=first[0].device)
+    acc, off = {}, 0
+    for k, q, span in zip(keys, first, spans):
+        acc[k] = buf[off:off + q.numel()].view(q.shape)
+        off += span
     for qm, sc, w in zip(q_models, scales, weights):
-        acc = {k: quantized_weighted_accumulate(a, qm[k], sc[k], w / tot)
-               for k, a in acc.items()}
+        quant_agg_inplace([acc[k] for k in keys], [qm[k] for k in keys],
+                          [sc[k] for k in keys], w / tot)
     return acc
 
 

@@ -8,9 +8,16 @@ kernel ``src/repro/kernels/swa_attention.py::swa_attention`` (Pallas) and
 the head repeat and transposes around it in the reference's
 ``kernels/ops.py::swa_flash_attention``: it takes the model's layout, q
 (B, L, H, hd) and k, v (B, L, KH, hd) with KH dividing H, and reads kv head
-h // (H / KH) in place. The CUDA source is ``csrc/swa_attention.cu``: an
-online softmax over the key tiles of the band only, float32 math, inputs
-float32 or bfloat16, the output in q's type.
+h // (H / KH) in place. It has two device instances, both an online softmax
+over the key tiles of the band only, with the output in q's type:
+
+- ``csrc/swa_attention_tc.cu``: bfloat16 on the tensor cores (``wgmma``,
+  K and V tiles brought in by TMA), for bfloat16 inputs whose hd is a
+  multiple of 16 up to 128;
+- ``csrc/swa_attention.cu``: float32 math on the CUDA cores, for float32
+  inputs and every other bfloat16 shape.
+
+:func:`route` states the rule.
 
 The device decides the route, with no fallback: a CUDA tensor launches the
 kernel (or raises), a CPU tensor takes ``swa_attention_plain``, the plain
@@ -25,8 +32,11 @@ import torch
 
 from repro_torch.kernels import _build
 
-#: kernel launches made by :func:`swa_attention` in this process
+#: kernel launches made by :func:`swa_attention` in this process, both
+#: instances
 launches = 0
+#: of those, launches of the tensor-core instance
+tc_launches = 0
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _SIGNATURES = {
@@ -35,6 +45,31 @@ _SIGNATURES = {
                          ctypes.c_float, ctypes.c_void_p], ctypes.c_int),
     "swa_attention_error_string": ([ctypes.c_int], ctypes.c_char_p),
 }
+_TC_SIGNATURES = {
+    "swa_attention_tc": ([ctypes.c_void_p] * 6
+                         + [ctypes.c_int, ctypes.c_int, ctypes.c_float,
+                            ctypes.c_void_p], ctypes.c_int),
+    "swa_attention_tc_error_string": ([ctypes.c_int], ctypes.c_char_p),
+}
+
+
+def route(dtype, hd):
+    """The device instance that takes inputs of ``dtype`` and head width
+    ``hd``: "tensor_core" for bfloat16 with hd a multiple of 16 in [16,
+    128], else "cuda_core" (float32 keeps its 2e-5 bar only without
+    bfloat16 products)."""
+    if dtype == torch.bfloat16 and hd % 16 == 0 and 16 <= hd <= 128:
+        return "tensor_core"
+    return "cuda_core"
+
+
+def tma_ready(t):
+    """True when TMA can read ``t`` (B, L, heads, hd) in place: a
+    contiguous last axis, a 16-byte-aligned base and byte strides that are
+    multiples of 16 on the other axes."""
+    size = t.element_size()
+    return t.stride(3) == 1 and t.data_ptr() % 16 == 0 \
+        and all(t.stride(a) * size % 16 == 0 for a in range(3))
 
 
 def band_mask(l, window, causal, device):
@@ -94,11 +129,15 @@ def swa_attention(q, k, v, window=0, causal=True):
 
 
 def _launch(q, k, v, window, causal):
-    global launches
-    # the kernel reads the first three axes through their strides; a last
-    # axis that is not contiguous is copied
-    q, k, v = (t if t.stride(3) == 1 else t.contiguous() for t in (q, k, v))
-    lib = _build.library("swa_attention", _SIGNATURES)
+    global launches, tc_launches
+    tc = route(q.dtype, q.shape[3]) == "tensor_core"
+    # the kernels read the first three axes through their strides; a
+    # tensor they cannot read in place is copied (a contiguous tensor off
+    # the 16-byte grid too, which .contiguous() would hand back as it is)
+    ready = tma_ready if tc else (lambda t: t.stride(3) == 1)
+    q, k, v = (t if ready(t)
+               else t.clone(memory_format=torch.contiguous_format)
+               for t in (q, k, v))
     b, l, h, hd = q.shape
     out = torch.empty((b, l, h, hd), dtype=q.dtype, device=q.device)
     if out.numel() == 0:
@@ -106,14 +145,23 @@ def _launch(q, k, v, window, causal):
     dims = (ctypes.c_int64 * 5)(b, l, h, k.shape[2], hd)
     strides = (ctypes.c_int64 * 9)(*q.stride()[:3], *k.stride()[:3],
                                    *v.stride()[:3])
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr())
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = lib.swa_attention(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                                out.data_ptr(), dims, strides, window,
-                                int(causal), _DTYPES[q.dtype],
-                                hd ** -0.5, stream)
+        if tc:
+            lib = _build.library("swa_attention_tc", _TC_SIGNATURES)
+            err = lib.swa_attention_tc(*ptrs, dims, strides, window,
+                                       int(causal), hd ** -0.5, stream)
+            what = lib.swa_attention_tc_error_string
+        else:
+            lib = _build.library("swa_attention", _SIGNATURES)
+            err = lib.swa_attention(*ptrs, dims, strides, window,
+                                    int(causal), _DTYPES[q.dtype],
+                                    hd ** -0.5, stream)
+            what = lib.swa_attention_error_string
     if err != 0:
         raise RuntimeError("swa_attention launch failed: "
-                           + lib.swa_attention_error_string(err).decode())
+                           + what(err).decode())
     launches += 1
+    tc_launches += tc
     return out

@@ -119,9 +119,36 @@ def test_quant_agg_kernel_matches_plain(n):
     got = K1.quant_agg(acc, q, scale, 0.25)
     torch.cuda.synchronize()
     assert K1.single_launches == before + 1
-    ws = torch.stack([torch.tensor(0.25, device="cuda"), scale])
-    torch.testing.assert_close(got, K1.quant_agg_plain(acc, q, ws),
+    torch.testing.assert_close(got, K1.quant_agg_plain(acc, q, scale, 0.25),
                                rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.cuda
+def test_quant_agg_inplace_kernel_bitwise_per_leaf():
+    """One in-place K3 step over 40 leaves (two tables: 32 + 8) equals the
+    per-leaf K3 calls bitwise, with 0-d CUDA scales and Python float
+    scales, leaves off the 16-byte grid and sizes not a multiple of 4."""
+    _need_cuda()
+    rng = np.random.default_rng(40)
+    sizes = [int(n) for n in rng.integers(1, 5000, 40)] + [200_704]
+    buf = torch.from_numpy(rng.standard_normal(sum(sizes) + 41)
+                           .astype(np.float32)).cuda()
+    accs, off = [], 0
+    for i, n in enumerate(sizes):
+        off += i % 3 == 1                    # some leaves off the grid
+        accs.append(buf[off:off + n])
+        off += n
+    qs = [torch.from_numpy(rng.integers(-511, 512, n).astype(np.int32))
+          .cuda() for n in sizes]
+    scales = [torch.tensor(float(s), device="cuda") if i % 2 else float(s)
+              for i, s in enumerate(rng.uniform(1e-3, 4e-3, len(sizes)))]
+    want = [K1.quant_agg(a, q, s, 0.2) for a, q, s in zip(accs, qs, scales)]
+    before = K1.single_launches
+    K1.quant_agg_inplace(accs, qs, scales, 0.2)
+    torch.cuda.synchronize()
+    assert K1.single_launches == before + 2
+    for a, w in zip(accs, want):
+        assert torch.equal(a, w)
 
 
 def _ssd_inputs(b, nc, c, h, p, g, n, seed, strided=False):
@@ -207,3 +234,80 @@ def test_swa_attention_kernel_matches_plain(l, window, causal, h, kh, hd,
     want = K5.swa_attention_plain(q, k, v, window, causal)
     tol = 2e-5 if dtype == torch.float32 else 2e-2
     torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("l,window,causal,h,kh,hd,offset", [
+    (128, 0, True, 4, 2, 32, False),     # tests/test_kernels.py's cases
+    (128, 48, True, 4, 2, 32, False),
+    (256, 64, True, 4, 2, 32, False),
+    (128, 16, True, 4, 2, 32, False),
+    (100, 0, True, 4, 2, 64, False),     # ragged last tiles
+    (1000, 300, True, 6, 2, 128, False),
+    (128, 48, False, 4, 1, 32, False),   # window, not causal
+    (64, 0, False, 2, 2, 32, False),
+    (300, 0, True, 4, 2, 16, False),     # hd 16 and 96: zero-padded columns
+    (300, 50, True, 4, 2, 96, False),
+    (200, 64, True, 4, 2, 64, True),     # inputs off the 16-byte grid
+    (8192, 4096, True, 6, 1, 128, False),  # mixtral-8x22b: one kv group
+])
+def test_swa_attention_tensor_core_matches_plain(l, window, causal, h, kh,
+                                                 hd, offset):
+    """K5's tensor-core instance (bfloat16) on the card against the plain
+    version at the bfloat16 bars (2e-2 a value, 1e-2 in relative L2),
+    counted as such; inputs TMA cannot read in place are copied first."""
+    _need_cuda()
+    rng = np.random.default_rng(l + window + hd)
+
+    def draw(n):
+        a = torch.from_numpy(rng.standard_normal(
+            (1, l, n, hd)).astype(np.float32)).cuda().to(torch.bfloat16)
+        if not offset:
+            return a
+        flat = torch.empty(a.numel() + 1, dtype=a.dtype, device="cuda")
+        flat[1:] = a.flatten()
+        return flat[1:].view(a.shape)
+    q, k, v = draw(h), draw(kh), draw(kh)
+    assert K5.route(q.dtype, hd) == "tensor_core"
+    assert K5.tma_ready(q) != offset
+    before, tc_before = K5.launches, K5.tc_launches
+    got = K5.swa_attention(q, k, v, window, causal)
+    torch.cuda.synchronize()
+    assert K5.launches == before + 1 and K5.tc_launches == tc_before + 1
+    want = K5.swa_attention_plain(q, k, v, window, causal)
+    torch.testing.assert_close(got.float(), want.float(), rtol=2e-2,
+                               atol=2e-2)
+    assert _rel_l2(got, want) <= 1e-2
+
+
+def _rel_l2(got, want):
+    """||got - want|| / ||want|| over the whole output, in float32."""
+    got, want = got.float(), want.float()
+    return float((got - want).norm() / want.norm().clamp_min(1e-30))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("l,window,causal,h,kh,hd", [
+    (200, 64, True, 4, 2, 40),           # hd not a multiple of 16
+    (300, 100, True, 4, 2, 256),         # hd above 128
+    (128, 48, False, 4, 1, 8),
+])
+def test_swa_attention_cuda_core_takes_other_bf16_shapes(l, window, causal,
+                                                         h, kh, hd):
+    """bfloat16 shapes the tensor-core instance refuses run K5's CUDA-core
+    instance (no tensor-core launch) and hold the bfloat16 bars (2e-2 a
+    value, 1e-2 in relative L2)."""
+    _need_cuda()
+    rng = np.random.default_rng(l + window + hd)
+    q, k, v = (torch.from_numpy(rng.standard_normal(
+        (1, l, n, hd)).astype(np.float32)).cuda().to(torch.bfloat16)
+        for n in (h, kh, kh))
+    assert K5.route(q.dtype, hd) == "cuda_core"
+    before, tc_before = K5.launches, K5.tc_launches
+    got = K5.swa_attention(q, k, v, window, causal)
+    torch.cuda.synchronize()
+    assert K5.launches == before + 1 and K5.tc_launches == tc_before
+    want = K5.swa_attention_plain(q, k, v, window, causal)
+    torch.testing.assert_close(got.float(), want.float(), rtol=2e-2,
+                               atol=2e-2)
+    assert _rel_l2(got, want) <= 1e-2

@@ -263,3 +263,137 @@ def test_inplace_aggregate_matches_reference():
                                rtol=1e-6, atol=1e-6)
     with pytest.raises(ValueError, match="no updates"):
         TA.inplace_aggregate([])
+
+
+def _model_stream(n_models, seed, bits=10):
+    """Quantized models of ten leaves (odd sizes, a 0-d leaf, sizes that
+    are and are not multiples of 4) with their 0-d tensor scales, and
+    unequal weights."""
+    rng = np.random.default_rng(seed)
+    shapes = [(144,), (16,), (3, 3, 1, 16), (62,), (7,), (), (5, 13),
+              (4608,), (2049,), (32,)]
+    models = [{f"l{i}": rng.standard_normal(s).astype(np.float32)
+               for i, s in enumerate(shapes)} for _ in range(n_models)]
+    weights = [float(w) for w in rng.uniform(1.0, 32.0, n_models)]
+    return models, weights
+
+
+@pytest.mark.parametrize("scale_kind", ["tensor", "float"])
+@pytest.mark.parametrize("mode", ["pallas_interpret", "jnp"])
+def test_plain_model_step_matches_reference(mode, scale_kind):
+    """The in-place aggregation (one K3 step per model over all its
+    leaves; the plain version here) against the JAX one in interpret mode
+    and against a stream of the jnp oracle, with the quantizer's 0-d
+    tensor scales and with Python float scales."""
+    models, weights = _model_stream(4, 11)
+    jq, js = zip(*(JQ.quantize_pytree({k: jnp.asarray(v)
+                                       for k, v in m.items()}, 10)
+                   for m in models))
+    if mode == "pallas_interpret":
+        want = ops.quantized_inplace_aggregate(list(jq), list(js), weights,
+                                               interpret=True)
+    else:
+        tot = sum(weights)
+        want = {k: jnp.zeros(jq[0][k].shape, jnp.float32) for k in jq[0]}
+        for qm, sc, w in zip(jq, js, weights):
+            want = {k: ref.quant_agg_ref(a, qm[k], sc[k], w / tot)
+                    for k, a in want.items()}
+    tq, ts = zip(*(TQ.quantize_pytree(params_from_numpy(m), 10)
+                   for m in models))
+    if scale_kind == "float":
+        ts = [{k: float(v) for k, v in s.items()} for s in ts]
+    got = TOPS.quantized_inplace_aggregate(list(tq), list(ts), weights)
+    for k in want:
+        assert got[k].shape == tuple(want[k].shape)
+        np.testing.assert_allclose(got[k].numpy(), np.asarray(want[k]),
+                                   rtol=1e-6, atol=1e-6)
+
+
+def test_inplace_aggregate_leaves_inputs_alone_and_counts_nothing():
+    """The caller's codes and scales are not modified, the accumulators
+    are fresh float32 tensors, and the CPU route makes no launch."""
+    models, weights = _model_stream(3, 12)
+    tq, ts = zip(*(TQ.quantize_pytree(params_from_numpy(m), 8)
+                   for m in models))
+    q_before = [{k: v.clone() for k, v in m.items()} for m in tq]
+    s_before = [{k: v.clone() for k, v in m.items()} for m in ts]
+    before = K1.single_launches
+    got = TOPS.quantized_inplace_aggregate(list(tq), list(ts), weights)
+    assert K1.single_launches == before
+    for m, mb in zip(tq, q_before):
+        assert all(torch.equal(m[k], mb[k]) for k in m)
+    for s, sb in zip(ts, s_before):
+        assert all(torch.equal(s[k], sb[k]) for k in s)
+    for k, v in got.items():
+        assert v.dtype == torch.float32 and v.shape == tq[0][k].shape
+        assert not any(v.data_ptr() == m[k].data_ptr() for m in tq)
+
+
+def test_leaf_tables_pack_in_order_and_split_past_capacity():
+    """K3's launch tables: leaves in the given order, empty leaves left
+    out, sizes and the 16-byte flag per leaf, device scales by address and
+    other scales as host floats, a split every TABLE_CAPACITY leaves."""
+    cap = K1.TABLE_CAPACITY
+    buf = torch.zeros(4 * 4096, dtype=torch.float32)
+    qbuf = torch.zeros(4 * 4096, dtype=torch.int32)
+    accs, qs, scales, want = [], [], [], []
+    off = 0
+    for i in range(2 * cap):
+        n = (0, 8, 7, 64, 12)[i % 5]
+        shift = 1 if i % 7 == 3 else 0       # a leaf off its 16-byte grid
+        off += shift
+        accs.append(buf[off:off + n])
+        qs.append(qbuf[off:off + n])
+        scales.append(torch.tensor(0.5 + i) if i % 2 else 0.25 * i)
+        if n:
+            want.append((i, n, int(n % 4 == 0 and off % 4 == 0)))
+        off = (off + n + 3) // 4 * 4
+    assert K1._leaves(accs, qs, scales) == []      # checked, not packed
+    tables = K1._leaves(accs, qs, scales, pack=True)
+    assert [count for _, count in tables] == [cap, len(want) - cap]
+    assert [len(table) for table, _ in tables] == [
+        count * K1._LEAF.size for _, count in tables]
+    flat = [rec for table, _ in tables
+            for rec in K1._LEAF.iter_unpack(table)]
+    assert len(flat) == len(want)
+    for (acc, q, out, sp, host, vec, n), (i, n_want, vec_want) in zip(
+            flat, want):
+        assert n == n_want and vec == vec_want
+        assert acc == accs[i].data_ptr() == out
+        assert q == qs[i].data_ptr()
+        if i % 2:        # a CPU tensor scale beside CPU leaves: by address
+            assert sp == scales[i].data_ptr()
+        else:
+            assert sp == 0 and host == np.float32(scales[i])
+    assert any(v == 0 for *_, v in want) and any(v == 1 for *_, v in want)
+
+
+def test_k3_weight_is_read_on_the_host():
+    """The card's route takes the weight as a host float: a number or a
+    CPU tensor. A weight on another device is refused, not read back."""
+    assert K1._host_weight(0.25) == 0.25
+    assert K1._host_weight(torch.tensor(0.5)) == 0.5
+    with pytest.raises(TypeError, match="weight"):
+        K1._host_weight(torch.empty((), device="meta"))
+
+
+def test_inplace_step_past_capacity_matches_per_leaf_steps():
+    """One in-place step over more leaves than a table holds equals the
+    per-leaf ``quant_agg`` calls bitwise, and leaves the inputs alone."""
+    rng = np.random.default_rng(13)
+    n_leaves = K1.TABLE_CAPACITY + 5
+    sizes = rng.integers(1, 300, n_leaves)
+    accs = [torch.from_numpy(rng.standard_normal(n).astype(np.float32))
+            for n in sizes]
+    qs = [torch.from_numpy(rng.integers(-511, 512, n).astype(np.int32))
+          for n in sizes]
+    scales = [torch.tensor(float(s), dtype=torch.float32)
+              for s in rng.uniform(1e-3, 4e-3, n_leaves)]
+    want = [K1.quant_agg(a, q, s, 0.3) for a, q, s in zip(accs, qs, scales)]
+    q_before = [q.clone() for q in qs]
+    K1.quant_agg_inplace(accs, qs, scales, 0.3)
+    for a, w in zip(accs, want):
+        assert torch.equal(a, w)
+    assert all(torch.equal(q, qb) for q, qb in zip(qs, q_before))
+    with pytest.raises(ValueError):
+        K1.quant_agg_inplace(accs, qs[:-1], scales, 0.3)

@@ -138,3 +138,113 @@ def test_cpu_route_and_input_checks():
         K5.swa_attention(q, k[:, :16], v[:, :16], 8)
     with pytest.raises(ValueError):
         K5.swa_attention(q, k, v, -1)
+
+
+@pytest.mark.parametrize("dtype,hd,want", [
+    (torch.bfloat16, 32, "tensor_core"), (torch.bfloat16, 64, "tensor_core"),
+    (torch.bfloat16, 128, "tensor_core"), (torch.bfloat16, 16, "tensor_core"),
+    (torch.bfloat16, 96, "tensor_core"), (torch.float32, 32, "cuda_core"),
+    (torch.float32, 128, "cuda_core"), (torch.bfloat16, 40, "cuda_core"),
+    (torch.bfloat16, 8, "cuda_core"), (torch.bfloat16, 256, "cuda_core")])
+def test_route_rule(dtype, hd, want):
+    """bfloat16 with hd a multiple of 16 up to 128 takes the tensor-core
+    instance; float32 and every other bfloat16 shape the CUDA-core one.
+    The rule reads neither the window nor causality: non-causal inputs
+    take the same instance."""
+    assert K5.route(dtype, hd) == want
+
+
+def test_tma_alignment_predicate():
+    """TMA reads a tensor in place when its base is 16-byte aligned, its
+    last axis contiguous and its other byte strides multiples of 16; the
+    wrapper copies any other tensor."""
+    x = torch.zeros((2, 24, 4, 64), dtype=torch.bfloat16)
+    assert K5.tma_ready(x)
+    assert K5.tma_ready(x[..., :48])             # 128-byte rows, 96 used
+    assert K5.tma_ready(x.transpose(1, 2).contiguous().transpose(1, 2))
+    assert not K5.tma_ready(x.flatten()[1:1 + 2 * 24 * 4 * 16].view(
+        2, 24, 4, 16))                           # base off by 2 bytes
+    assert not K5.tma_ready(x.transpose(2, 3))   # last axis strided
+    assert not K5.tma_ready(torch.zeros((1, 8, 1, 20),
+                                        dtype=torch.bfloat16))  # 40 B rows
+
+
+def test_model_qkv_need_no_copy():
+    """q, k and v as the attention layer hands them to K5 (from the
+    projections' einsum and ``apply_rope``) are read in place by TMA."""
+    cfg = dataclasses.replace(torch_smoke("mixtral-8x22b"),
+                              compute_dtype="bfloat16")
+    jcfg = dataclasses.replace(jax_smoke("mixtral-8x22b"),
+                               compute_dtype="bfloat16")
+    p = lm_params_from_numpy(jax.tree.map(
+        np.asarray, JL.init_attention(jax.random.PRNGKey(0), jcfg)),
+        device="cpu")
+    x = torch.zeros((2, 40, cfg.d_model), dtype=torch.bfloat16)
+    pos = torch.arange(40)[None].expand(2, 40)
+    q, k, v = TL._qkv(p, x, x, cfg, pos, pos)
+    assert K5.route(q.dtype, q.shape[3]) == "tensor_core"
+    assert all(K5.tma_ready(t) for t in (q, k, v))
+
+
+def _tc_emulation(q, k, v, window, causal, bq=128, bk=128):
+    """The tensor-core instance's arithmetic on the CPU: the same walk
+    over 128-row query blocks and 128-row key tiles of the band, bfloat16
+    q, k, v, float32 sums, scores in base 2 with masked ones at -1e30, p
+    rounded to bfloat16 for p.v while l sums the float32 p, the
+    denominator clamped at 1e-30 and the output rounded to bfloat16."""
+    b, l, h, hd = q.shape
+    rep = h // k.shape[2]
+    qf = q.float().permute(0, 2, 1, 3)                       # (b, h, l, hd)
+    pad = (-l) % bk
+    kf, vf = (torch.nn.functional.pad(t.float(), (0, 0, 0, 0, 0, pad))
+              .repeat_interleave(rep, dim=2).permute(0, 2, 1, 3)
+              for t in (k, v))
+    sl2 = torch.tensor(hd ** -0.5, dtype=torch.float32) * 1.4426950408889634
+    out = torch.empty((b, h, l, hd))
+    for i0 in range(0, l, bq):
+        rows = torch.arange(i0, min(i0 + bq, l))
+        last = min(l - 1, i0 + bq - 1) if causal else l - 1
+        first = max(0, i0 - window + 1) if window else 0
+        m = torch.full((b, h, len(rows)), -1e30)
+        den = torch.zeros((b, h, len(rows)))
+        o = torch.zeros((b, h, len(rows), hd))
+        for j0 in range(first // bk * bk, last + 1, bk):
+            cols = torch.arange(j0, j0 + bk)
+            s = qf[:, :, rows] @ kf[:, :, j0:j0 + bk].transpose(2, 3)
+            vis = cols[None] < l
+            if causal:
+                vis = vis & (cols[None] <= rows[:, None])
+            if window:
+                vis = vis & (cols[None] > rows[:, None] - window)
+            s = torch.where(vis, s * sl2, torch.tensor(-1e30))
+            m_new = torch.maximum(m, s.amax(-1))
+            alpha = torch.exp2(m - m_new)
+            p = torch.exp2(s - m_new[..., None])
+            den = den * alpha + p.sum(-1)
+            o = o * alpha[..., None] \
+                + p.to(torch.bfloat16).float() @ vf[:, :, j0:j0 + bk]
+            m = m_new
+        out[:, :, rows] = o / den.clamp_min(1e-30)[..., None]
+    return out.permute(0, 2, 1, 3).to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("l,window,causal,h,kh,hd", [
+    (128, 0, True, 4, 2, 32), (128, 48, True, 4, 2, 32),
+    (256, 64, True, 4, 2, 32), (128, 16, True, 4, 2, 32),
+    (100, 0, True, 4, 2, 64), (100, 30, True, 4, 2, 64),
+    (128, 48, False, 4, 1, 32), (64, 0, False, 2, 2, 32),
+    (300, 130, True, 2, 1, 128),
+    (2048, 1024, True, 2, 1, 128)])   # most rows far past the window
+def test_tensor_core_rounding_within_the_bf16_bar(l, window, causal, h, kh,
+                                                  hd):
+    """An emulation of the tensor-core instance's rounding stays within
+    the card's bfloat16 bars of ``swa_attention_plain``: 2e-2 a value, and
+    1e-2 in relative L2 over the output (where it reads near 2e-3), so
+    both bars have room for bfloat16 products and a bfloat16 p."""
+    q, k, v = (torch.from_numpy(a).to(torch.bfloat16) for a in
+               _qkv(l, 31 + l + window, "bfloat16", h=h, kh=kh, hd=hd))
+    got = _tc_emulation(q, k, v, window, causal).float()
+    want = K5.swa_attention_plain(q, k, v, window, causal).float()
+    assert got.shape == want.shape and torch.isfinite(got).all()
+    torch.testing.assert_close(got, want, rtol=2e-2, atol=2e-2)
+    assert float((got - want).norm() / want.norm()) <= 1e-2
