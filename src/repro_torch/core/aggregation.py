@@ -85,25 +85,33 @@ def inplace_aggregate(updates: Iterable[Tuple]):
 def quantized_weighted_average(stacked_params, weights, bits: int):
     """Weighted average over the QuAFL wire format: each client row of
     each leaf is quantized to ``bits`` with its own per-tensor scale, then
-    the server dequantizes + accumulates the whole cohort in one call of
-    kernel K1 (``repro_torch.kernels.quant_agg.quant_agg_stacked``) per
-    leaf. The tensors' device decides the route: the CUDA kernel on the
-    card, its plain version on the CPU.
+    the server dequantizes + accumulates the whole cohort, every leaf, in
+    one call of kernel K1 (``repro_torch.kernels.quant_agg.
+    quant_agg_stacked_inplace``). The accumulators are one zeroed float32
+    buffer, each leaf at a 16-byte offset; float32 leaves come back as
+    views of it. The tensors' device decides the route: the CUDA kernel on
+    the card, its plain version on the CPU.
 
     Zero-weight rows (padded cohort slots) contribute nothing: their
     weight*scale product is 0, even where their scale is not finite."""
     from repro_torch.core.quantize import quantize_stacked
-    from repro_torch.kernels.ops import quantized_stacked_accumulate
+    from repro_torch.kernels.ops import quantized_stacked_accumulate_inplace
 
-    w = _normalized(weights, _device(stacked_params))
-    out = {}
-    for name, leaf in stacked_params.items():
-        q, scale = quantize_stacked(leaf, bits)
-        acc = torch.zeros(leaf.shape[1:], dtype=torch.float32,
-                          device=leaf.device)
-        sw = torch.where(w > 0, w * scale, 0.0)
-        out[name] = quantized_stacked_accumulate(acc, q, sw).to(leaf.dtype)
-    return out
+    dev = _device(stacked_params)
+    w = _normalized(weights, dev)
+    names = list(stacked_params)
+    qs, scales = zip(*(quantize_stacked(stacked_params[k], bits)
+                       for k in names))
+    # (L, K): the same float32 products w * scale as one leaf at a time
+    sw = torch.where(w > 0, w * torch.stack(scales), 0.0)
+    spans = [(q[0].numel() + 3) // 4 * 4 for q in qs]
+    buf = torch.zeros(sum(spans), dtype=torch.float32, device=dev)
+    accs, off = [], 0
+    for q, span in zip(qs, spans):
+        accs.append(buf[off:off + q[0].numel()].view(q.shape[1:]))
+        off += span
+    quantized_stacked_accumulate_inplace(accs, list(qs), list(sw))
+    return {k: acc.to(stacked_params[k].dtype) for k, acc in zip(names, accs)}
 
 
 def apply_buffered_deltas(global_params, stacked_new, stacked_base, weights):

@@ -1,7 +1,9 @@
 // Mamba-2 SSD intra-chunk kernel for Hopper (sm_90a), float32 on the CUDA
 // cores. Replaces the TPU kernel src/repro/kernels/ssd_scan.py::
-// ssd_chunk_pallas (Pallas body _ssd_chunk_kernel). Per (batch b, chunk z,
-// head h), with c rows i, j of the chunk:
+// ssd_chunk_pallas (Pallas body _ssd_chunk_kernel) for the shapes the
+// tensor-core instance (csrc/ssd_scan_tc.cu) does not take: c > 2048, or
+// p or n above 128 (repro_torch.kernels.ssd_scan.route states the rule).
+// Per (batch b, chunk z, head h), with c rows i, j of the chunk:
 //
 //   cs[i]        = sum_{k <= i} dt[k] * A[h]
 //   y_diag[i, :] = sum_{j <= i} (C[i] . B[j]) * exp(cs[i] - cs[j]) * dt[j]

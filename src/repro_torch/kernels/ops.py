@@ -11,7 +11,8 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels.quant_agg import (quant_agg, quant_agg_inplace,
-                                          quant_agg_stacked)
+                                          quant_agg_stacked,
+                                          quant_agg_stacked_inplace)
 from repro_torch.kernels.ssd_scan import ssd_chunk
 from repro_torch.kernels.swa_attention import swa_attention
 from repro_torch.kernels.trimmed_agg import trimmed_agg_stacked
@@ -26,6 +27,12 @@ def quantized_stacked_accumulate(acc, q, sw):
     """acc + sum_k sw[k] * q[k] for a whole stacked cohort of quantized
     models (kernel K1)."""
     return quant_agg_stacked(acc, q, sw)
+
+
+def quantized_stacked_accumulate_inplace(accs, qs, sws):
+    """accs[i] += sum_k sws[i][k] * qs[i][k] in place for every leaf of a
+    stacked quantized cohort, one K1 launch for all of them (kernel K1)."""
+    quant_agg_stacked_inplace(accs, qs, sws)
 
 
 def trimmed_stacked_combine(x, rank_weights):

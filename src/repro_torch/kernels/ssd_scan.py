@@ -5,9 +5,17 @@ chunk, head), the quadratic-in-chunk part of the SSD algorithm
 (arXiv:2405.21060 §6): ``cs = cumsum(dt * A)``; ``y_diag = (C B^T ∘ L ∘
 dt) x`` with the causal decay ``L[i, j] = exp(cs[i] - cs[j])`` for j <= i;
 ``states = x^T (B * dt * exp(cs[-1] - cs))``. It replaces the TPU kernel
-``src/repro/kernels/ssd_scan.py::ssd_chunk_pallas`` (Pallas). The CUDA
-source is ``csrc/ssd_scan.cu``: one launch a call, 64 query rows of one
-(batch, chunk, head) per block plus one block per slice for the state.
+``src/repro/kernels/ssd_scan.py::ssd_chunk_pallas`` (Pallas). It has two
+device instances, one launch a call, both float32 in and out:
+
+- ``csrc/ssd_scan_tc.cu``: the tensor cores (``mma.sync`` TF32 with each
+  product split in three, big·big + big·small + small·big, which keeps
+  float32 accuracy), one block per (batch, chunk, head) slice walking the
+  lower triangle of 64 x 64 tiles, for p, n <= 128 where its tiles fit
+  one block's shared memory (c <= 832 at p = n = 128);
+- ``csrc/ssd_scan.cu``: the CUDA cores, for every other shape.
+
+:func:`route` states the rule.
 
 B and C may come at group width, (b, nc, c, g, n) with g dividing h, or
 head-repeated (g = h, the reference's form); head h reads group
@@ -27,13 +35,45 @@ import torch
 
 from repro_torch.kernels import _build
 
-#: kernel launches made by :func:`ssd_chunk` in this process
+#: kernel launches made by :func:`ssd_chunk` in this process, both
+#: instances
 launches = 0
+#: of those, launches of the tensor-core instance
+tc_launches = 0
+
+#: the tensor-core instance's limits (``kMaxPN``, ``kSmemMax`` in
+#: ``csrc/ssd_scan_tc.cu``)
+TC_MAX_PN, TC_SMEM_MAX = 128, 232448
 
 _SIGNATURES = {
     "ssd_chunk": ([ctypes.c_void_p] * 10, ctypes.c_int),
     "ssd_chunk_error_string": ([ctypes.c_int], ctypes.c_char_p),
 }
+_TC_SIGNATURES = {
+    "ssd_chunk_tc": ([ctypes.c_void_p] * 10, ctypes.c_int),
+    "ssd_chunk_tc_error_string": ([ctypes.c_int], ctypes.c_char_p),
+}
+
+
+def tc_smem_bytes(c, p, n):
+    """Shared memory of one tensor-core block (``smem_floats`` in
+    ``csrc/ssd_scan_tc.cu``): cs, dt and decay over c rounded to 64; two
+    C, two B and two x tiles of 64 rows at padded widths; the 64 x 68 W
+    stage."""
+    def up(v, m):
+        return -(-v // m) * m
+    return 4 * (3 * up(c, 64) + 4 * 64 * (up(n, 8) + 4)
+                + 2 * 64 * (up(p, 16) + 8) + 64 * 68)
+
+
+def route(c, p, n):
+    """The device instance that takes a chunk of ``c`` rows, head width
+    ``p`` and state width ``n``: "tensor_core" for p, n <= 128 where its
+    tiles fit one block's shared memory, else "cuda_core"."""
+    if p <= TC_MAX_PN and n <= TC_MAX_PN \
+            and tc_smem_bytes(c, p, n) <= TC_SMEM_MAX:
+        return "tensor_core"
+    return "cuda_core"
 
 
 def _heads(t, h):
@@ -97,15 +137,20 @@ def ssd_chunk(x, dt, A, B, C):
     return _launch(x, dt, A, B, C)
 
 
-def _launch(x, dt, A, B, C):
-    global launches
+def _launch(x, dt, A, B, C, instance=None):
+    """Launch the instance ``route`` names (``instance``: the one named,
+    "tensor_core" or "cuda_core", as a benchmark compares them)."""
+    global launches, tc_launches
     # the kernel reads the other axes through their strides; a last axis
     # that is not contiguous is copied
     x, B, C = (t if t.stride(4) == 1 else t.contiguous() for t in (x, B, C))
     A = A.contiguous()
-    lib = _build.library("ssd_scan", _SIGNATURES)
     b, nc, c, h, p = x.shape
     g, n = B.shape[3], B.shape[4]
+    tc = (instance or route(c, p, n)) == "tensor_core"
+    name = "ssd_scan_tc" if tc else "ssd_scan"
+    fn = "ssd_chunk_tc" if tc else "ssd_chunk"
+    lib = _build.library(name, _TC_SIGNATURES if tc else _SIGNATURES)
     y = torch.empty((b, nc, c, h, p), dtype=torch.float32, device=x.device)
     st = torch.empty((b, nc, h, p, n), dtype=torch.float32, device=x.device)
     if y.numel() == 0 or st.numel() == 0:
@@ -115,11 +160,12 @@ def _launch(x, dt, A, B, C):
                                     *B.stride()[:4], *C.stride()[:4])
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = lib.ssd_chunk(x.data_ptr(), dt.data_ptr(), A.data_ptr(),
-                            B.data_ptr(), C.data_ptr(), y.data_ptr(),
-                            st.data_ptr(), dims, strides, stream)
+        err = getattr(lib, fn)(x.data_ptr(), dt.data_ptr(), A.data_ptr(),
+                               B.data_ptr(), C.data_ptr(), y.data_ptr(),
+                               st.data_ptr(), dims, strides, stream)
     if err != 0:
-        raise RuntimeError("ssd_chunk launch failed: "
-                           + lib.ssd_chunk_error_string(err).decode())
+        raise RuntimeError(f"{fn} launch failed: "
+                           + getattr(lib, f"{fn}_error_string")(err).decode())
     launches += 1
+    tc_launches += tc
     return y, st

@@ -46,8 +46,9 @@ def test_quant_agg_stacked_kernel_matches_plain(n, k):
 
 @pytest.mark.cuda
 def test_quantized_weighted_average_card_matches_cpu():
-    """The whole QuAFL aggregation of a padded cohort (K1 on the card,
-    its plain version on the CPU) agrees; quantization is bitwise."""
+    """The whole QuAFL aggregation of a padded cohort (K1 on the card, one
+    launch for all leaves; its plain version on the CPU) agrees;
+    quantization is bitwise."""
     _need_cuda()
     rng = np.random.default_rng(0)
     leaves = {"dense": (5, 1568, 128), "bo": (5, 62),
@@ -60,10 +61,48 @@ def test_quantized_weighted_average_card_matches_cpu():
     before = K1.launches
     card = quantized_weighted_average({k: torch.from_numpy(v).cuda()
                                        for k, v in x.items()}, w, 10)
-    assert K1.launches == before + len(leaves)
+    assert K1.launches == before + 1         # one table for every leaf
     for k in leaves:
         torch.testing.assert_close(card[k].cpu(), cpu[k], rtol=1e-5,
                                    atol=1e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_leaves", [8, 40])
+def test_quant_agg_stacked_table_bitwise_per_leaf(n_leaves):
+    """One K1 table call over 8 leaves (the CNN's sizes) and over 40 (two
+    tables: 32 + 8) equals the same leaves as tables of one bitwise and
+    the plain version within 1e-5; leaves off the 16-byte grid, sizes not
+    a multiple of 4 and a pad row with sw = 0 among them."""
+    _need_cuda()
+    rng = np.random.default_rng(n_leaves)
+    k = 5
+    sizes = ([144, 16, 4608, 32, 200_704, 128, 7936, 62] if n_leaves == 8
+             else [int(n) for n in rng.integers(1, 5000, n_leaves)])
+    buf = torch.from_numpy(rng.standard_normal(sum(sizes) + n_leaves)
+                           .astype(np.float32)).cuda()
+    accs, off = [], 0
+    for i, n in enumerate(sizes):
+        off += i % 3 == 1                    # some leaves off the grid
+        accs.append(buf[off:off + n])
+        off += n
+    qs = [torch.from_numpy(rng.integers(-511, 512, (k, n)).astype(np.int32))
+          .cuda() for n in sizes]
+    sw = torch.from_numpy(rng.uniform(0, 2e-3, (n_leaves, k))
+                          .astype(np.float32)).cuda()
+    sw[:, -1] = 0.0                          # the pad row
+    for q in qs:
+        q[-1] = 511
+    want = [K1.quant_agg_stacked(a, q, s) for a, q, s in zip(accs, qs, sw)]
+    plain = [K1.quant_agg_stacked_plain(a, q, s)
+             for a, q, s in zip(accs, qs, sw)]
+    before = K1.launches
+    K1.quant_agg_stacked_inplace(accs, qs, list(sw))
+    torch.cuda.synchronize()
+    assert K1.launches == before + -(-n_leaves // K1.TABLE_CAPACITY)
+    for a, w, pl in zip(accs, want, plain):
+        assert torch.equal(a, w)
+        torch.testing.assert_close(a, pl, rtol=1e-5, atol=1e-5)
 
 
 def _rank_weights(k, kind, m=None):
@@ -175,16 +214,23 @@ def _ssd_inputs(b, nc, c, h, p, g, n, seed, strided=False):
     (2, 2, 32, 4, 32, 4, 32, False),     # B, C pre-repeated (g = h)
     (1, 2, 100, 4, 64, 2, 32, True),     # ragged chunk, strided views
     (1, 2, 256, 8, 64, 1, 128, True),    # mamba2-1.3b's chunk, p and n
+    (1, 2, 24, 4, 18, 1, 12, True),      # p, n not multiples of 8; rows
+                                         # of x off the 16-byte grid
+    (1, 2, 64, 2, 96, 1, 32, False),     # p > 64
+    (1, 2, 64, 2, 32, 1, 160, False),    # n > 128: the CUDA-core instance
 ])
 def test_ssd_chunk_kernel_matches_plain(b, nc, c, h, p, g, n, strided):
     """K4 on the card against its plain version (float32; sums taken in
-    another order, so the CPU parity bar of 2e-4 applies)."""
+    another order and, on the tensor cores, products split in three TF32
+    terms, so the CPU parity bar of 2e-4 applies), through the instance
+    ``route`` names."""
     _need_cuda()
     args = _ssd_inputs(b, nc, c, h, p, g, n, c + h, strided)
-    before = K4.launches
+    before, tc_before = K4.launches, K4.tc_launches
     y, st = K4.ssd_chunk(*args)
     torch.cuda.synchronize()
     assert K4.launches == before + 1
+    assert K4.tc_launches == tc_before + (K4.route(c, p, n) == "tensor_core")
     y_want, st_want = K4.ssd_chunk_plain(*args)
     torch.testing.assert_close(y, y_want, rtol=2e-4, atol=2e-4)
     torch.testing.assert_close(st, st_want, rtol=2e-4, atol=2e-4)
@@ -197,8 +243,10 @@ def test_ssd_chunk_kernel_no_overflow_above_the_diagonal():
     _need_cuda()
     x, dt, A, B, C = _ssd_inputs(1, 2, 64, 2, 16, 1, 16, 3)
     A = torch.full_like(A, -60.0)
+    tc_before = K4.tc_launches
     y, st = K4.ssd_chunk(x, dt, A, B, C)
     torch.cuda.synchronize()
+    assert K4.tc_launches == tc_before + 1
     assert torch.isfinite(y).all() and torch.isfinite(st).all()
     y_want, st_want = K4.ssd_chunk_plain(x, dt, A, B, C)
     torch.testing.assert_close(y, y_want, rtol=2e-4, atol=2e-4)

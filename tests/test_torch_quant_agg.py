@@ -397,3 +397,116 @@ def test_inplace_step_past_capacity_matches_per_leaf_steps():
     assert all(torch.equal(q, qb) for q, qb in zip(qs, q_before))
     with pytest.raises(ValueError):
         K1.quant_agg_inplace(accs, qs[:-1], scales, 0.3)
+
+
+def test_stacked_leaf_tables_pack_in_order_and_split_past_capacity():
+    """K1's launch tables: leaves in the given order, empty leaves left
+    out, the acc, q, sw and out pointers, n and the 16-byte flag per leaf
+    (set only for n a multiple of 4 with acc, q and out on the 16-byte
+    grid), a split every TABLE_CAPACITY leaves."""
+    cap, k = K1.TABLE_CAPACITY, 3
+    buf = torch.zeros(4 * 4096, dtype=torch.float32)
+    qbuf = torch.zeros(k * 4 * 4096, dtype=torch.int32)
+    sw = torch.rand(2 * cap, k)
+    accs, qs, outs, want = [], [], [], []
+    off = 0
+    for i in range(2 * cap):
+        n = (0, 8, 7, 64, 12)[i % 5]
+        shift = 1 if i % 7 == 3 else 0       # a leaf off its 16-byte grid
+        off += shift
+        accs.append(buf[off:off + n])
+        outs.append(buf[off:off + n] if i % 2 else torch.empty(n))
+        qs.append(qbuf[k * off:k * (off + n)].view(k, n))
+        if n:
+            want.append((i, n, int(n % 4 == 0 and off % 4 == 0)))
+        off = (off + n + 3) // 4 * 4
+    sws = list(sw)
+    assert K1._stacked_leaves(accs, qs, sws) == []   # checked, not packed
+    tables = K1._stacked_leaves(accs, qs, sws, outs, pack=True)
+    assert [count for _, count in tables] == [cap, len(want) - cap]
+    assert [len(table) for table, _ in tables] == [
+        count * K1._STACKED_LEAF.size for _, count in tables]
+    flat = [rec for table, _ in tables
+            for rec in K1._STACKED_LEAF.iter_unpack(table)]
+    assert len(flat) == len(want)
+    for (acc, q, s, out, n, vec, pad), (i, n_want, vec_want) in zip(
+            flat, want):
+        assert n == n_want and vec == vec_want and pad == 0
+        assert acc == accs[i].data_ptr() and q == qs[i].data_ptr()
+        assert s == sws[i].data_ptr() and out == outs[i].data_ptr()
+    assert any(v == 0 for *_, v in want) and any(v == 1 for *_, v in want)
+    inplace = K1._stacked_leaves(accs[:2], qs[:2], sws[:2], pack=True)
+    (acc, _, _, out, *_), = K1._STACKED_LEAF.iter_unpack(inplace[0][0])
+    assert acc == out == accs[1].data_ptr()
+
+
+def test_stacked_leaves_check_the_table():
+    """One K for every leaf, sw of length K, one device, contiguity."""
+    accs = [torch.zeros(5), torch.zeros(2, 3)]
+    qs = [torch.zeros(3, 5, dtype=torch.int32),
+          torch.zeros(3, 2, 3, dtype=torch.int32)]
+    sws = [torch.ones(3), torch.ones(3)]
+    K1._stacked_leaves(accs, qs, sws)
+    with pytest.raises(ValueError):          # a second K
+        K1._stacked_leaves(accs, [qs[0], qs[1][:2]], sws)
+    with pytest.raises(ValueError):
+        K1._stacked_leaves(accs, qs, [sws[0], sws[1][:2]])
+    with pytest.raises(ValueError):
+        K1._stacked_leaves(accs, qs, sws[:1])
+    with pytest.raises(TypeError):
+        K1._stacked_leaves(accs, qs, [sws[0], sws[1].double()])
+    with pytest.raises(ValueError):
+        K1.quant_agg_stacked_inplace([accs[0], torch.zeros(3, 2).t()],
+                                     [qs[0], qs[1].transpose(1, 2)], sws)
+
+
+def test_stacked_inplace_past_capacity_matches_per_leaf_calls():
+    """One in-place K1 step over more leaves than a table holds (sizes not
+    a multiple of 4, a pad row with sw = 0) equals the per-leaf
+    ``quant_agg_stacked`` calls bitwise and makes no launch on the CPU."""
+    rng = np.random.default_rng(14)
+    n_leaves, k = K1.TABLE_CAPACITY + 8, 5
+    sizes = rng.integers(1, 300, n_leaves)
+    accs = [torch.from_numpy(rng.standard_normal(n).astype(np.float32))
+            for n in sizes]
+    qs = [torch.from_numpy(rng.integers(-511, 512, (k, n)).astype(np.int32))
+          for n in sizes]
+    sw = torch.from_numpy(rng.uniform(0, 2e-3, (n_leaves, k))
+                          .astype(np.float32))
+    sw[:, -1] = 0.0
+    want = [K1.quant_agg_stacked(a, q, s) for a, q, s in zip(accs, qs, sw)]
+    before = K1.launches
+    TOPS.quantized_stacked_accumulate_inplace(accs, qs, list(sw))
+    assert K1.launches == before
+    for a, w in zip(accs, want):
+        assert torch.equal(a, w)
+
+
+def test_quantized_weighted_average_cnn_leaves_match_reference():
+    """The one-launch aggregation over the CNN's eight leaves (a padded
+    cohort: two zero-weight rows, one of them NaN) against the JAX package,
+    and bitwise equal to one ``quant_agg_stacked`` call per leaf on fresh
+    zero accumulators, as the aggregation was formed before its leaves
+    shared one table."""
+    rng = np.random.default_rng(15)
+    shapes = [(3, 3, 1, 16), (16,), (3, 3, 16, 32), (32,), (1568, 128),
+              (128,), (128, 62), (62,)]
+    x = {f"l{i}": (rng.standard_normal((6,) + s) * 0.05).astype(np.float32)
+         for i, s in enumerate(shapes)}
+    for v in x.values():
+        v[-1] = np.nan
+    w = np.array([32.0, 16.0, 32.0, 8.0, 0.0, 0.0])
+    want = JA.quantized_weighted_average(
+        {k: jnp.asarray(v) for k, v in x.items()}, w, 10, mode="jnp")
+    tx = params_from_numpy(x)
+    got = TA.quantized_weighted_average(tx, w, 10)
+    wt = torch.as_tensor(w, dtype=torch.float32)
+    wt = wt / torch.clamp_min(wt.sum(), 1e-9)
+    for k, v in tx.items():
+        assert torch.isfinite(got[k]).all()
+        np.testing.assert_allclose(got[k].numpy(), np.asarray(want[k]),
+                                   rtol=1e-5, atol=1e-6)
+        q, scale = TQ.quantize_stacked(v, 10)
+        per_leaf = K1.quant_agg_stacked(
+            torch.zeros(v.shape[1:]), q, torch.where(wt > 0, wt * scale, 0.0))
+        assert torch.equal(got[k], per_leaf)

@@ -200,3 +200,100 @@ def test_init_ssm_draws_the_reference_distributions():
     dt = torch.nn.functional.softplus(p["dt_bias"])
     assert float(dt.min()) >= s.dt_min * 0.999
     assert float(dt.max()) <= s.dt_max * 1.001
+
+
+# chip_smoke.py phase 8's seven K4 shapes (b, nc, c, h, p, g, n), the
+# full-width mamba2-1.3b prefill shape cut to one (batch, chunk, head) slice
+PHASE8_SHAPES = [(1, 4, 16, 2, 16, 1, 16), (2, 4, 32, 4, 32, 2, 32),
+                 (1, 3, 32, 2, 64, 1, 128), (2, 2, 32, 4, 32, 4, 32),
+                 (1, 2, 100, 4, 64, 2, 32), (4, 1, 24, 16, 32, 1, 32),
+                 (1, 1, 256, 1, 64, 1, 128)]
+
+
+def _tf32(a):
+    """float32 -> TF32 (10 mantissa bits), round to nearest with ties away
+    from zero, as ``cvt.rna.tf32.f32`` rounds: add half a unit of the
+    13 dropped bits to the magnitude, then clear them."""
+    bits = a.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _mm_split(a, b):
+    """a @ b as the tensor-core instance takes it: each operand split into
+    big = tf32(v) and small = tf32(v - big), three TF32 products (exact in
+    float32) summed in float32, the small cross terms first."""
+    ab, bb = _tf32(a), _tf32(b)
+    as_, bs = _tf32(a - ab), _tf32(b - bb)
+    return as_ @ bb + ab @ bs + ab @ bb
+
+
+def _split_tf32_emulation(x, dt, A, B, C, mm=_mm_split):
+    """The arithmetic of ``csrc/ssd_scan_tc.cu`` on the CPU: S = C.B^T
+    through ``mm``, W = S * exp(cs_i - cs_j) * dt_j in float32 (zero above
+    the diagonal), y = W.x and states = x^T.(B * dt * exp(cs_last - cs))
+    through ``mm``."""
+    h = x.shape[3]
+    Bh = K4._heads(B, h).permute(0, 1, 3, 2, 4)          # (b,nc,h,c,n)
+    Ch = K4._heads(C, h).permute(0, 1, 3, 2, 4)
+    xh = x.permute(0, 1, 3, 2, 4)                         # (b,nc,h,c,p)
+    cs = torch.cumsum(dt * A, dim=2).permute(0, 1, 3, 2)  # (b,nc,h,c)
+    dth = dt.permute(0, 1, 3, 2)
+    c = x.shape[2]
+    tril = torch.tril(torch.ones((c, c), dtype=torch.bool))
+    seg = cs[..., :, None] - cs[..., None, :]
+    L = torch.where(tril, torch.exp(torch.where(tril, seg, 0.0)), 0.0)
+    W = mm(Ch, Bh.transpose(-1, -2)) * L * dth[..., None, :]
+    y = mm(W, xh).permute(0, 1, 3, 2, 4)
+    dec = dth * torch.exp(cs[..., -1:] - cs)
+    st = mm(xh.transpose(-1, -2), Bh * dec[..., None])
+    return y, st
+
+
+def _phase8_inputs(shape, seed):
+    """chip_smoke.ssd_inputs' distributions, drawn with numpy."""
+    b, nc, c, h, p, g, n = shape
+    rng = np.random.default_rng(seed)
+
+    def rn(*sh):
+        return torch.from_numpy(rng.standard_normal(sh).astype(np.float32))
+    dt = torch.nn.functional.softplus(rn(b, nc, c, h))
+    return (rn(b, nc, c, h, p), dt, -torch.exp(rn(h) * 0.3),
+            rn(b, nc, c, g, n) * 0.5, rn(b, nc, c, g, n) * 0.5)
+
+
+@pytest.mark.parametrize("shape", PHASE8_SHAPES)
+def test_split_tf32_emulation_within_the_bar(shape):
+    """The tensor-core instance's 3xTF32 arithmetic, emulated on the CPU,
+    stays within the 2e-4 bar of ``ssd_chunk_plain`` at every shape of
+    phase 8 (which all route to it)."""
+    b, nc, c, h, p, g, n = shape
+    assert K4.route(c, p, n) == "tensor_core"
+    args = _phase8_inputs(shape, sum(shape))
+    y, st = _split_tf32_emulation(*args)
+    y_want, st_want = K4.ssd_chunk_plain(*args)
+    torch.testing.assert_close(y, y_want, **TOL)
+    torch.testing.assert_close(st, st_want, **TOL)
+
+
+def test_single_pass_tf32_misses_the_bar():
+    """Why the split: one TF32 product per pair, at the prefill slice,
+    lands far outside the 2e-4 bar that the split keeps."""
+    args = _phase8_inputs(PHASE8_SHAPES[-1], 1)
+    y, _ = _split_tf32_emulation(*args, mm=lambda a, b: _tf32(a) @ _tf32(b))
+    y_want, _ = K4.ssd_chunk_plain(*args)
+    assert float((y - y_want).abs().max()) > 10 * TOL["atol"]
+
+
+def test_route_rule():
+    """p, n <= 128 with the tiles inside one block's 227 KB of shared
+    memory take the tensor cores (every config's: mamba2-1.3b and jamba
+    at d_state 128, head 64, chunk 256; their smoke configs at 32 / 32),
+    the rest the CUDA cores."""
+    assert K4.tc_smem_bytes(256, 64, 128) == 4 * (768 + 4 * 64 * 132
+                                                   + 2 * 64 * 72 + 64 * 68)
+    for c, p, n in ((256, 64, 128), (32, 32, 32), (100, 64, 32),
+                    (3584, 64, 128), (832, 128, 128), (24, 1, 1)):
+        assert K4.route(c, p, n) == "tensor_core"
+    for c, p, n in ((256, 64, 160), (3585, 64, 128), (833, 128, 128),
+                    (256, 129, 32), (64, 16, 256)):
+        assert K4.route(c, p, n) == "cuda_core"
