@@ -8,12 +8,13 @@ Phases, each printing its own line; any failure exits non-zero:
   2. precision  — TF32 off for matmuls and cuDNN convolutions;
   3. build      — nvcc builds every kernel source of the port (sm_90a),
                   all at once, with each source's registers and spills;
-  4. kernels    — each kernel (K1 quant_agg_stacked and K3 quant_agg:
-                  single leaves and whole-cohort / whole-model leaf
-                  tables; K2 trimmed_agg_stacked) against its plain
-                  PyTorch version on the card, at the main path's shapes
-                  and more, with timings beside the plain version, one
-                  PyTorch library call and the bound;
+  4. kernels    — each kernel (K1 quant_agg_stacked, K2
+                  trimmed_agg_stacked and K3 quant_agg: single leaves and
+                  whole-cohort / whole-model leaf tables, K2 also with a
+                  validity mask) against its plain PyTorch version on the
+                  card, at the main path's shapes and more, with timings
+                  beside the plain version, one PyTorch library call and
+                  the bound (K2 also at a byte-bound shape);
   5. main path  — the quickstart pipeline (fedavg, fedavg_sch, autoflsat
                   with 10-bit QuAFL) on the card through FLySTacK, kernel
                   launches counted (one K1 table a round), then the same
@@ -21,8 +22,9 @@ Phases, each printing its own line; any failure exits non-zero:
                   RoundRecord must be equal;
   6. engines    — FedProxSch, FedProxSchV2, FedBuff, FedAvg with the
                   trimmed mean and FedBuff with the median, the same way:
-                  K1 runs once every FedProx round, K2 every robust round
-                  (and K1 none), plain FedBuff neither;
+                  K1 runs once every FedProx round, K2 once every robust
+                  round or flush (one table for all 8 leaves; K1 none),
+                  plain FedBuff neither;
   7. in-place   — the streamed in-place aggregation of one 10-bit cohort
                   through K3 (one launch per model), bitwise against a
                   per-leaf K3 stream and close to K1's cohort aggregation;
@@ -312,12 +314,33 @@ def timed_set(torch, impls, **reps):
     return tot
 
 
-def k2_phase(torch, ta):
+def _same(torch, a, b):
+    """Bitwise equal, NaN for NaN (whatever the NaN's payload)."""
+    na, nb = torch.isnan(a), torch.isnan(b)
+    return bool(torch.equal(na, nb)) and bool(torch.equal(
+        torch.where(na, 0, a.view(torch.int32)),
+        torch.where(nb, 0, b.view(torch.int32))))
+
+
+# compare-exchanges of K2's sorting network at the K of each timed shape:
+# Batcher's odd-even merge sort of the bucket of 8, 16 or 32 keys, pruned
+# to K (csrc/trimmed_agg.cu; tests/test_torch_trimmed_agg.py counts them)
+K2_COMPARATORS = {5: 9, 10: 32, 32: 191}
+
+
+def k2_phase(torch, ta, aggregation):
     """K2 against its plain version on the card: every CNN leaf at K = 5
-    and 10, n = 7 / 2049 / 100,003 at K = 1, 2, 4, 33, 100; trimmed-mean
-    and median rank weights; for K > 2 the last two rows are +inf pads at
-    zero-weight ranks; one NaN coordinate everywhere and one whole NaN
-    row. Then one robust aggregation (8 leaves, K = 5) timed."""
+    and 10, n = 7 / 2049 / 100,003 at K = 1, 2, 4, 33, 100, as tables of
+    one with every row valid; trimmed-mean and median rank weights; for
+    K > 2 the last two rows are +inf pads at zero-weight ranks; one NaN
+    coordinate everywhere and one whole NaN row. Then masked cases: the
+    pad rows hold garbage (NaN or a finite 7.0) that the host mask marks
+    invalid, against the plain version on where(valid, x, inf); the 8 CNN
+    leaves as one table against 8 tables of one, bitwise and NaN for NaN,
+    masked and unmasked. Then one robust aggregation timed
+    (``_rank_combine``: 8 leaves, K = 5) beside the per-leaf path it
+    replaced, and the byte-bound shape (n = 2^24 at K = 10 and 32)."""
+    import numpy as np
     g = torch.Generator(device="cuda").manual_seed(2)
     cases = [(n, k, kind, False) for n in CNN_LEAF_SIZES for k in (5, 10)
              for kind in ("trimmed_mean", "median")]
@@ -345,27 +368,122 @@ def k2_phase(torch, ta):
                                  f"nan_row={nan_row}: max |kernel - plain| "
                                  f"= {err}")
         max_err = max(max_err, err)
+    # masked: garbage in the invalid rows, the mask and rank weights on the
+    # host (by value up to K = 32, copied to the card above)
+    masked = [(n, k, kind) for n in CNN_LEAF_SIZES for k in (5, 10)
+              for kind in ("trimmed_mean", "median")]
+    masked += [(n, k, kind) for n in (7, 2049, 100_003)
+               for k in (2, 4, 16, 32, 33, 100)
+               for kind in ("trimmed_mean", "median")]
+    for i, (n, k, kind) in enumerate(masked):
+        x = torch.randn(k, n, device="cuda", generator=g) * 0.05
+        m = max(k - 2, 1)
+        x[m:] = float("nan") if i % 2 else 7.0
+        x[0, n // 2] = float("nan")
+        valid = np.arange(k) < m
+        rw = rank_weights(torch, k, kind, m)
+        got, = ta.trimmed_agg_stacked_leaves([x], rw.cpu().numpy(), valid)
+        vb = torch.from_numpy(valid).cuda()[:, None]
+        want = ta.trimmed_agg_stacked_plain(torch.where(vb, x, torch.inf), rw)
+        torch.cuda.synchronize()
+        ok, err = _close(torch, got, want, 1e-5, 1e-6)
+        rows.append({"n": n, "K": k, "m": m, "rank_weights": kind,
+                     "masked": True, "max_abs_err": err, "ok": ok})
+        if not ok:
+            raise AssertionError(f"trimmed_agg_stacked_leaves n={n} K={k} "
+                                 f"m={m} {kind}: max |kernel - plain| = "
+                                 f"{err}")
+        max_err = max(max_err, err)
+    # the 8 CNN leaves as one table against 8 tables of one
+    for k, mask in ((5, None), (5, np.arange(5) < 3), (10, np.arange(10) < 8)):
+        leaves = [torch.randn(k, n, device="cuda", generator=g) * 0.05
+                  for n in CNN_LEAF_SIZES]
+        for x in leaves:
+            x[0, x.shape[1] // 2] = float("nan")
+            if mask is not None:
+                x[int(mask.sum()):] = float("nan")
+        rw = rank_weights(torch, k, "median", k if mask is None
+                          else int(mask.sum())).cpu().numpy()
+        one = [ta.trimmed_agg_stacked_leaves([x], rw, mask)[0]
+               for x in leaves]
+        before = ta.launches
+        table = ta.trimmed_agg_stacked_leaves(leaves, rw, mask)
+        torch.cuda.synchronize()
+        n_launch = ta.launches - before
+        bitwise = all(_same(torch, a, b) for a, b in zip(table, one))
+        rows.append({"table": "cnn", "K": k, "masked": mask is not None,
+                     "launches": n_launch, "bitwise_per_leaf": bitwise})
+        if not bitwise or n_launch != 1:
+            raise AssertionError(f"trimmed_agg_stacked_leaves, 8 CNN leaves "
+                                 f"K={k} masked={mask is not None}: "
+                                 f"{n_launch} launches, bitwise {bitwise}")
     # one robust aggregation of the main path: 8 leaves, K = 5 valid rows,
-    # trimmed-mean rank weights (ranks 1..3 at 1/3)
+    # trimmed-mean rank weights (ranks 1..3 at 1/3), as the aggregator
+    # makes it; "per_leaf_ms" makes it as before the table (8 where + 8
+    # tables of one), with the rank weights and the mask already on the
+    # card (its two copies from the host left out); "kernel_ms" is the
+    # table call alone
     k = 5
-    rw = rank_weights(torch, k, "trimmed_mean", k)
+    rw_dev = rank_weights(torch, k, "trimmed_mean", k)
+    rw = rw_dev.cpu().numpy()
+    valid = np.ones(k, bool)
+    vb = torch.from_numpy(valid).cuda()[:, None]
     leaves = [torch.randn(k, n, device="cuda", generator=g) * 0.05
               for n in CNN_LEAF_SIZES]
+    stacked = {f"leaf{i}": x for i, x in enumerate(leaves)}
     timing = timed_set(torch, {
-        "ms": lambda: [ta.trimmed_agg_stacked(x, rw) for x in leaves],
-        "plain_ms": lambda: [ta.trimmed_agg_stacked_plain(x, rw)
+        "ms": lambda: aggregation._rank_combine(stacked, valid, rw),
+        "kernel_ms": lambda: ta.trimmed_agg_stacked_leaves(leaves, rw,
+                                                           valid),
+        "per_leaf_ms": lambda: [
+            ta.trimmed_agg_stacked(torch.where(vb, x, torch.inf), rw_dev)
+            for x in leaves],
+        "plain_ms": lambda: [ta.trimmed_agg_stacked_plain(x, rw_dev)
                              for x in leaves],
         # two library calls per leaf: a sort over the clients, then the
         # contraction with the rank weights
-        "library_ms": lambda: [rw @ torch.sort(x, 0).values
+        "library_ms": lambda: [rw_dev @ torch.sort(x, 0).values
                                for x in leaves],
     })
-    nbytes = sum((4 * k + 4) * n + 4 * k for n in CNN_LEAF_SIZES)
-    # a sorting network of K(K-1)/2 compares plus K multiply-adds per value
-    ops = sum((k * (k - 1) // 2 + 2 * k) * n for n in CNN_LEAF_SIZES)
+    nbytes = sum((4 * k + 4) * n for n in CNN_LEAF_SIZES)
+    # the network's compare-exchanges (an integer min and max each) plus a
+    # multiply and an add per rank, per value
+    ops = sum((2 * K2_COMPARATORS[k] + 2 * k) * n for n in CNN_LEAF_SIZES)
     timing["bytes"] = nbytes
     timing["bound_ms"] = max(nbytes / HBM_BYTES_PER_S,
                              ops / FP32_FLOPS_PER_S) * 1e3
+    # the byte-bound shape: one leaf of n = 2^24, K = 10 (8 valid) and 32
+    # (30 valid), the pads NaN; the bound counts the valid rows read and
+    # the output written
+    n = 1 << 24
+    timing["bytebound"] = []
+    for k, m in ((10, 8), (32, 30)):
+        x = torch.randn(k, n, device="cuda", generator=g) * 0.05
+        x[m:] = float("nan")
+        valid = np.arange(k) < m
+        rw_dev = rank_weights(torch, k, "trimmed_mean", m)
+        rw = rw_dev.cpu().numpy()
+        got, = ta.trimmed_agg_stacked_leaves([x], rw, valid)
+        vb = torch.from_numpy(valid).cuda()[:, None]
+        want = ta.trimmed_agg_stacked_plain(torch.where(vb, x, torch.inf),
+                                            rw_dev)
+        torch.cuda.synchronize()
+        ok, err = _close(torch, got, want, 1e-5, 1e-6)
+        del want
+        if not ok:
+            raise AssertionError(f"trimmed_agg_stacked_leaves n=2^24 K={k}: "
+                                 f"max |kernel - plain| = {err}")
+        ms = time_ms(torch, lambda: ta.trimmed_agg_stacked_leaves(
+            [x], rw, valid), reps=20, trials=5, warmup=3)
+        nb = (m + 1) * n * 4
+        ops = (2 * K2_COMPARATORS[k] + 2 * k) * n
+        bound = max(nb / HBM_BYTES_PER_S, ops / FP32_FLOPS_PER_S) * 1e3
+        timing["bytebound"].append({
+            "n": n, "K": k, "m": m, "ms": ms, "bound_ms": bound,
+            "bound_share": bound / ms, "bytes": nb, "max_abs_err": err})
+        max_err = max(max_err, err)
+        del x, got
+        torch.cuda.empty_cache()
     return max_err, timing, rows
 
 
@@ -976,6 +1094,7 @@ def main() -> int:
     import numpy as np
 
     from repro_torch import quickstart as qs
+    from repro_torch.core import aggregation
     from repro_torch.kernels import _build
     from repro_torch.kernels import quant_agg as qa
     from repro_torch.kernels import ssd_scan as K4
@@ -1037,16 +1156,25 @@ def main() -> int:
           f"{t5['plain_ms']:.4f} / {t5['plain_graph_ms']:.4f} ms, 8 addmv "
           f"{t5['library_ms']:.4f} / {t5['library_graph_ms']:.4f} ms, bound "
           f"{t5['bound_ms']:.5f} ms")
-    k2_err, k2_time, k2_rows = k2_phase(torch, ta)
+    k2_err, k2_time, k2_rows = k2_phase(torch, ta, aggregation)
     report["k2_rows"], report["k2_timing"] = k2_rows, k2_time
+    big = "; ".join(f"K={r['K']} (m={r['m']}) {r['ms']:.4f} ms, bound "
+                    f"{r['bound_ms']:.4f} ({100 * r['bound_share']:.1f}%)"
+                    for r in k2_time["bytebound"])
     print(f"[4 kernels] K2 trimmed_agg_stacked vs plain: {len(k2_rows)} "
           f"cases allclose (rtol=1e-5, atol=1e-6; K up to 100, +inf pads, "
-          f"NaN), max |err| {k2_err:.3g}; one robust aggregation (8 "
-          f"leaves, K=5) eager / CUDA graph: kernel {k2_time['ms']:.4f} / "
-          f"{k2_time['graph_ms']:.4f} ms, plain {k2_time['plain_ms']:.4f} / "
-          f"{k2_time['plain_graph_ms']:.4f} ms, sort + matmul "
-          f"{k2_time['library_ms']:.4f} / {k2_time['library_graph_ms']:.4f}"
-          f" ms, bound {k2_time['bound_ms']:.5f} ms")
+          f"NaN, masked garbage rows; the 8-leaf table bitwise equal to "
+          f"tables of one), max |err| {k2_err:.3g}; one robust aggregation "
+          f"(_rank_combine, 8 leaves, K=5) eager / CUDA graph: "
+          f"{k2_time['ms']:.4f} / {k2_time['graph_ms']:.4f} ms (the table "
+          f"call alone {k2_time['kernel_ms']:.4f} / "
+          f"{k2_time['kernel_graph_ms']:.4f}), per leaf (8 where + 8 "
+          f"launches) {k2_time['per_leaf_ms']:.4f} / "
+          f"{k2_time['per_leaf_graph_ms']:.4f} ms, plain "
+          f"{k2_time['plain_ms']:.4f} / {k2_time['plain_graph_ms']:.4f} ms, "
+          f"sort + matmul {k2_time['library_ms']:.4f} / "
+          f"{k2_time['library_graph_ms']:.4f} ms, bound "
+          f"{k2_time['bound_ms']:.5f} ms; n=2^24: {big}")
     k3_err, k3_time, k3_rows = k3_phase(torch, qa)
     report["k3_rows"], report["k3_timing"] = k3_rows, k3_time
     print(f"[4 kernels] K3 quant_agg vs plain: {len(k3_rows)} cases "
@@ -1165,9 +1293,9 @@ def main() -> int:
         finite = all(bool(torch.isfinite(p).all())
                      for p in sim.algo.global_params.values())
         # a quantized FedProx round makes one K1 table for its 8 leaves; a
-        # robust round one K2 launch per leaf
+        # robust round or flush one K2 table for its 8 leaves
         want = {"fedprox_sch": (1, 0), "fedprox_schv2": (1, 0),
-                "fedbuff": (0, 0)}.get(tag, (0, 8))
+                "fedbuff": (0, 0)}.get(tag, (0, 1))
         print(f"[6 {tag}] cuda: {json.dumps(res.summary())}; launches K1 "
               f"{n1}, K2 {n2}, K3 {n3} in {n_rounds} rounds; run "
               f"{t_alg:.3f} s ({t_alg / max(n_rounds, 1):.4f} s a round)")
@@ -1321,16 +1449,23 @@ def main() -> int:
         "launches": k_launch[1],
         "max_abs_err": k2_err,
         "ms": k2_time["ms"],
-        "kernel_ms": k2_time["ms"],
+        "kernel_ms": k2_time["kernel_ms"],
         "plain_ms": k2_time["plain_ms"],
         "bound_ms": k2_time["bound_ms"],
         "bound_by": "bytes",
         "library_ms": k2_time["library_ms"],
         "graph_ms": k2_time["graph_ms"],
+        "kernel_graph_ms": k2_time["kernel_graph_ms"],
         "plain_graph_ms": k2_time["plain_graph_ms"],
         "library_graph_ms": k2_time["library_graph_ms"],
+        "per_leaf_ms": k2_time["per_leaf_ms"],
+        "per_leaf_graph_ms": k2_time["per_leaf_graph_ms"],
+        "bytebound": k2_time["bytebound"],
         "library": "torch.sort then rw @ sorted (two calls a leaf)",
-        "shape": "one robust aggregation: 8 CNN leaves, K=5, trimmed mean",
+        "shape": "one robust aggregation (_rank_combine): 8 CNN leaves "
+                 "(213,630 values), K=5, trimmed mean, one table launch "
+                 "(per_leaf: 8 where + 8 tables of one; bytebound: one "
+                 "leaf of n=2^24 at K=10 and 32, pads masked)",
     }, {
         "name": "quant_agg",
         "route": "cuda",

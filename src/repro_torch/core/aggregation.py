@@ -17,8 +17,9 @@ estimators selected by ``FLConfig.aggregator``:
 
 Parameters are dicts of tensors; a stacked dict carries a leading client
 axis (K, ...). Every estimator is pad-row-safe: a zero-weight row, even a
-non-finite one, never reaches the output. The rank-based pair pushes such
-rows to +inf and runs through kernel K2 (``kernels/trimmed_agg.py``).
+non-finite one, never reaches the output. The rank-based pair runs through
+kernel K2 (``kernels/trimmed_agg.py``), one launch per aggregation, which
+sorts such rows last as +inf without reading them.
 Cohort weights are host arrays, so the valid count, the rank weights and
 the attenuated-row count are host integers; the norm clip and Krum read
 one device value back per aggregation, never one per leaf.
@@ -231,19 +232,17 @@ class NormClipAggregator(RobustAggregator):
 
 
 def _rank_combine(stacked_params, valid, rank_weights):
-    """``trimmed_stacked_combine`` (kernel K2) per leaf, with invalid rows
-    pushed to +inf so they sort last under exact-0 rank weight."""
-    from repro_torch.kernels.ops import trimmed_stacked_combine
+    """``trimmed_stacked_combine_leaves`` (kernel K2) over every leaf at
+    once, the host mask ``valid`` and rank weights passed as they are:
+    invalid rows sort last as +inf under exact-0 rank weight."""
+    from repro_torch.kernels.ops import trimmed_stacked_combine_leaves
 
-    dev = _device(stacked_params)
-    rw = torch.as_tensor(rank_weights, dtype=torch.float32, device=dev)
-    vt = torch.as_tensor(valid, device=dev)
-    out = {}
-    for name, leaf in stacked_params.items():
-        vb = vt.reshape((-1,) + (1,) * (leaf.dim() - 1))
-        x = torch.where(vb, leaf.to(torch.float32), torch.inf)
-        out[name] = trimmed_stacked_combine(x, rw).to(leaf.dtype)
-    return out
+    leaves = stacked_params.values()
+    outs = trimmed_stacked_combine_leaves(
+        [leaf.to(torch.float32).contiguous() for leaf in leaves],
+        rank_weights, valid)
+    return {name: out.to(leaf.dtype)
+            for (name, leaf), out in zip(stacked_params.items(), outs)}
 
 
 @dataclasses.dataclass(frozen=True)

@@ -15,7 +15,8 @@ from repro_torch.kernels.quant_agg import (quant_agg, quant_agg_inplace,
                                           quant_agg_stacked_inplace)
 from repro_torch.kernels.ssd_scan import ssd_chunk
 from repro_torch.kernels.swa_attention import swa_attention
-from repro_torch.kernels.trimmed_agg import trimmed_agg_stacked
+from repro_torch.kernels.trimmed_agg import (trimmed_agg_stacked,
+                                             trimmed_agg_stacked_leaves)
 
 
 def quantized_weighted_accumulate(acc, q, scale, weight):
@@ -36,11 +37,19 @@ def quantized_stacked_accumulate_inplace(accs, qs, sws):
 
 
 def trimmed_stacked_combine(x, rank_weights):
-    """sum_r rw[r] * sort_over_clients(x)[r] for a whole stacked cohort —
-    the rank-based robust-aggregation hot path (kernel K2). Invalid and
-    pad rows must be pre-set to +inf so they sort last under zero rank
-    weight."""
+    """sum_r rw[r] * sort_over_clients(x)[r] for one stacked leaf (kernel
+    K2, a table of one). Invalid and pad rows must be pre-set to +inf so
+    they sort last under zero rank weight."""
     return trimmed_agg_stacked(x, rank_weights)
+
+
+def trimmed_stacked_combine_leaves(xs, rank_weights, valid=None):
+    """sum_r rw[r] * sort_over_clients(where(valid, x, inf))[r] for every
+    leaf of a stacked cohort — the rank-based robust-aggregation hot path,
+    one K2 launch for all of them. The rows that ``valid`` (K host
+    booleans; None: all) marks invalid sort last, as +inf, under zero rank
+    weight, and are never read."""
+    return trimmed_agg_stacked_leaves(xs, rank_weights, valid)
 
 
 def quantized_inplace_aggregate(q_models, scales, weights):

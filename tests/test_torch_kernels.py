@@ -144,6 +144,142 @@ def test_trimmed_agg_stacked_kernel_matches_plain(n, k, kind):
     assert torch.isfinite(got).sum() >= n - 1
 
 
+def _same(a, b):
+    """Bitwise equal, NaN for NaN (whatever the NaN's payload)."""
+    na, nb = torch.isnan(a), torch.isnan(b)
+    return bool(torch.equal(na, nb)) and bool(torch.equal(
+        torch.where(na, 0, a.view(torch.int32)),
+        torch.where(nb, 0, b.view(torch.int32))))
+
+
+def _masked_cohort(rng, sizes, k, m, garbage):
+    """(K, n) leaves of one cohort as views of one buffer (some off the
+    16-byte grid), the last k - m rows pads holding ``garbage`` and one
+    NaN coordinate in a valid row; and the host mask of the m valid
+    rows."""
+    buf = torch.from_numpy((0.05 * rng.standard_normal(
+        k * sum(sizes) + len(sizes))).astype(np.float32)).cuda()
+    xs, off = [], 0
+    for i, n in enumerate(sizes):
+        off += i % 3 == 1                    # some leaves off the grid
+        x = buf[off:off + k * n].view(k, n)
+        x[m:] = garbage
+        x[0, n // 2] = np.nan
+        xs.append(x)
+        off += k * n
+    return xs, np.arange(k) < m
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("n_leaves", [8, 40])
+def test_trimmed_agg_table_bitwise_per_leaf(n_leaves, masked):
+    """One K2 table call over 8 leaves (the CNN's sizes) and over 40 (two
+    tables: 32 + 8) equals the same leaves as tables of one, bitwise and
+    NaN for NaN, and the plain version on where(valid, x, inf) within
+    1e-5 / 1e-6. Masked: the pad rows hold NaN, never read; unmasked
+    they hold +inf, as the caller set them."""
+    _need_cuda()
+    rng = np.random.default_rng(n_leaves + masked)
+    k, m = 5, 3
+    sizes = ([144, 16, 4608, 32, 200_704, 128, 7936, 62] if n_leaves == 8
+             else [int(n) for n in rng.integers(1, 5000, n_leaves)])
+    xs, valid = _masked_cohort(rng, sizes, k, m,
+                               np.nan if masked else np.inf)
+    mask = valid if masked else None
+    rw = _rank_weights(k, "trimmed_mean", m)
+    per_leaf = [K2.trimmed_agg_stacked_leaves([x], rw, mask)[0] for x in xs]
+    before = K2.launches
+    got = K2.trimmed_agg_stacked_leaves(xs, rw, mask)
+    torch.cuda.synchronize()
+    assert K2.launches == before + -(-n_leaves // K2.TABLE_CAPACITY)
+    vb = torch.from_numpy(valid).cuda()[:, None]
+    rwt = torch.from_numpy(rw).cuda()
+    for x, g, w in zip(xs, got, per_leaf):
+        assert _same(g, w)
+        plain = K2.trimmed_agg_stacked_plain(torch.where(vb, x, torch.inf),
+                                             rwt)
+        torch.testing.assert_close(g, plain, rtol=1e-5, atol=1e-6,
+                                   equal_nan=True)
+        # the valid row's NaN sorts after the pads, to a rank of weight 0;
+        # the coordinate takes a pad's +inf: no pad's garbage gets through
+        assert int(torch.isfinite(g).sum()) == g.numel() - 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["trimmed_mean", "median"])
+def test_robust_aggregation_is_one_k2_launch(kind):
+    """A trimmed-mean or median aggregation of a padded cohort of the
+    CNN's 8 leaves, and a median FedBuff flush, each make one K2 launch;
+    both agree with the CPU route within 1e-5 / 1e-6."""
+    from repro_torch.core import aggregation as TA
+    _need_cuda()
+    rng = np.random.default_rng(5)
+    shapes = {"c1": (3, 3, 1, 16), "b1": (16,), "c2": (3, 3, 16, 32),
+              "b2": (32,), "d1": (1568, 128), "bd": (128,), "o": (128, 62),
+              "bo": (62,)}
+    cohort = {n: (0.05 * rng.standard_normal((5,) + s)).astype(np.float32)
+              for n, s in shapes.items()}
+    for v in cohort.values():
+        v[3:] = np.nan                        # pad rows, weight 0
+    w = np.array([32.0, 16.0, 32.0, 0.0, 0.0])
+    agg = TA.make_robust_aggregator(kind)
+    card_in = {n: torch.from_numpy(v).cuda() for n, v in cohort.items()}
+    zeros = {n: torch.zeros(s) for n, s in shapes.items()}
+    before = K2.launches
+    card, n_card = agg.aggregate(card_in, w,
+                                 {n: z.cuda() for n, z in zeros.items()})
+    torch.cuda.synchronize()
+    assert K2.launches == before + 1
+    cpu, n_cpu = agg.aggregate({n: torch.from_numpy(v)
+                                for n, v in cohort.items()}, w, zeros)
+    assert n_card == n_cpu
+    for n in shapes:
+        torch.testing.assert_close(card[n].cpu(), cpu[n], rtol=1e-5,
+                                   atol=1e-6)
+    base = {n: torch.from_numpy(v[:3].copy()) for n, v in cohort.items()}
+    new = {n: b + 0.01 for n, b in base.items()}
+    wts = np.array([0.5, 1.0, 2.0], np.float32)
+    before = K2.launches
+    flushed, _ = TA.robust_apply_buffered_deltas(
+        {n: z.cuda() for n, z in zeros.items()},
+        {n: v.cuda() for n, v in new.items()},
+        {n: v.cuda() for n, v in base.items()}, wts, agg)
+    torch.cuda.synchronize()
+    assert K2.launches == before + 1
+    want, _ = TA.robust_apply_buffered_deltas(zeros, new, base, wts, agg)
+    for n in shapes:
+        torch.testing.assert_close(flushed[n].cpu(), want[n], rtol=1e-5,
+                                   atol=1e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,m", [(33, 30), (40, 37)])
+def test_trimmed_agg_any_k_through_the_table(k, m):
+    """K > 32 takes the rank walk through the same table: three leaves in
+    one launch, the rank weights and the mask copied to the card, equal
+    to the tables of one bitwise and to the plain version on where(valid,
+    x, inf) within 1e-5 / 1e-6."""
+    _need_cuda()
+    rng = np.random.default_rng(k)
+    xs, valid = _masked_cohort(rng, [7, 2049, 4608], k, m, 3.0)
+    for kind in ("trimmed_mean", "median"):
+        rw = _rank_weights(k, kind, m)
+        per_leaf = [K2.trimmed_agg_stacked_leaves([x], rw, valid)[0]
+                    for x in xs]
+        before = K2.launches
+        got = K2.trimmed_agg_stacked_leaves(xs, rw, valid)
+        torch.cuda.synchronize()
+        assert K2.launches == before + 1
+        vb = torch.from_numpy(valid).cuda()[:, None]
+        for x, g, w in zip(xs, got, per_leaf):
+            assert _same(g, w)
+            plain = K2.trimmed_agg_stacked_plain(
+                torch.where(vb, x, torch.inf), torch.from_numpy(rw).cuda())
+            torch.testing.assert_close(g, plain, rtol=1e-5, atol=1e-6,
+                                       equal_nan=True)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("n", [7, 2049, 200_704, 100_003])
 def test_quant_agg_kernel_matches_plain(n):

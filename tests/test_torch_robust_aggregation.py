@@ -171,3 +171,47 @@ def test_rank_defenses_survive_model_replacement_mean_does_not():
                                  _both(ref0)[0], mode="jnp")
         assert np.abs(got["w"].numpy() - honest_mean).max() < 0.5
         _assert_close(got, want)
+
+
+@pytest.mark.parametrize("pad", [1e3, -7.0])
+@pytest.mark.parametrize("name", ["trimmed_mean", "median"])
+def test_rank_aggregators_ignore_finite_pad_garbage(name, pad):
+    """The rank pair hands K2 the cohort as it is, with the validity mask:
+    finite garbage in the zero-weight rows (which a sort would rank among
+    the real ones, were it read) leaves the result equal to the JAX
+    package's."""
+    stacked = _cohort(3)
+    for v in stacked.values():
+        v[3:] = pad
+    w = np.array([8.0, 32.0, 16.0, 0.0, 0.0])
+    js, ts = _both(stacked)
+    zeros = {n: np.zeros(s, np.float32) for n, s in SHAPES.items()}
+    jz, tz = _both(zeros)
+    want, n_want = JA.make_robust_aggregator(name).aggregate(
+        js, w, jz, mode="jnp")
+    got, n_got = TA.make_robust_aggregator(name).aggregate(ts, w, tz)
+    assert n_got == n_want
+    _assert_close(got, want)
+
+
+@pytest.mark.parametrize("k", [3, 6])
+@pytest.mark.parametrize("name", ["trimmed_mean", "median"])
+def test_robust_apply_buffered_deltas_rank_pair_matches_reference(name, k):
+    """FedBuff's robust flush through the trimmed mean and the median,
+    every leaf of the buffer in one K2 call, against the JAX package."""
+    rng = np.random.default_rng(k)
+    g = {n: rng.standard_normal(s).astype(np.float32)
+         for n, s in SHAPES.items()}
+    base = {n: np.stack([v] * k) for n, v in g.items()}
+    new = {n: b + rng.standard_normal(b.shape).astype(np.float32)
+           for n, b in base.items()}
+    wts = rng.uniform(0.2, 2.0, k).astype(np.float32)
+    agg = TA.make_robust_aggregator(name)
+    want, n_want = JA.robust_apply_buffered_deltas(
+        _both(g)[0], _both(new)[0], _both(base)[0], jnp.asarray(wts),
+        JA.make_robust_aggregator(name), mode="jnp")
+    got, n_got = TA.robust_apply_buffered_deltas(
+        params_from_numpy(g), params_from_numpy(new),
+        params_from_numpy(base), wts, agg)
+    assert n_got == n_want
+    _assert_close(got, want)
