@@ -5,7 +5,8 @@
 
 Phases, each printing its own line; any failure exits non-zero:
   1. device     — a CUDA card is present; its name and power limit;
-  2. precision  — TF32 off for matmuls and cuDNN convolutions;
+  2. precision  — TF32 off for matmuls and cuDNN convolutions, cuDNN's
+                  algorithms deterministic;
   3. build      — nvcc builds every kernel source of the port (sm_90a),
                   all at once, with each source's registers and spills;
   4. kernels    — each kernel (K1 quant_agg_stacked, K2
@@ -19,12 +20,30 @@ Phases, each printing its own line; any failure exits non-zero:
                   with 10-bit QuAFL) on the card through FLySTacK, kernel
                   launches counted (one K1 table a round), then the same
                   runs on the CPU: every non-accuracy field of every
-                  RoundRecord must be equal;
+                  RoundRecord must be equal; the plan's visibility and
+                  eclipse series card against CPU (samples that differ;
+                  the PackedEclipse arrays must be equal);
   6. engines    — FedProxSch, FedProxSchV2, FedBuff, FedAvg with the
                   trimmed mean and FedBuff with the median, the same way:
                   K1 runs once every FedProx round, K2 once every robust
                   round or flush (one table for all 8 leaves; K1 none),
-                  plain FedBuff neither;
+                  plain FedBuff neither; then the optional layers at the
+                  quickstart configuration (``faulted_runs``: every engine
+                  with faults and storms, battery energy, deadlines with
+                  carry and discard, bounded retries, the energy-drain and
+                  poison attacks, the deadline_aware / energy_aware /
+                  oracle policies), one K1 or K2 launch a round, card
+                  against CPU, with every fault counter firing somewhere
+                  and the poisoned trimmed-mean run's lost updates
+                  reaching K2's validity mask (rows masked beyond the
+                  cohort's pads); and the full-width AutoFLSat of
+                  ``repro_torch.constellation_train`` (4 x 10 satellites,
+                  EuroSAT, 12 rounds) with energy, faults and a deadline:
+                  seconds a round and one K1 launch a round on the card;
+                  round 0 alone, card against CPU, records (accuracy
+                  within ACC_TOL_EARLY) and global parameters (1e-5 but
+                  for the coordinates a 10-bit snap moves); its first 3
+                  records equal on the CPU;
   7. in-place   — the streamed in-place aggregation of one 10-bit cohort
                   through K3 (one launch per model), bitwise against a
                   per-leaf K3 stream and close to K1's cohort aggregation;
@@ -98,6 +117,10 @@ SERVE_RUNS = (("mamba2-1.3b", 1024, 0, {"ssm_impl": "pallas"}),
 ACC_TOL_EARLY, EARLY_ROUNDS = 4 / 512, 3
 ACC_TOL_LATE = 24 / 512
 CNN_LEAF_SIZES = (144, 16, 4608, 32, 200_704, 128, 7936, 62)
+# the EuroSAT CNN of the full-width run (1,055,082 parameters); its
+# aggregation is one K1 table over the 4 cluster models (10 at
+# constellation_train --clusters 10)
+EUROSAT_LEAF_SIZES = (432, 16, 4608, 32, 1_048_576, 128, 1280, 10)
 
 
 def gpu_line() -> str:
@@ -175,16 +198,20 @@ def captured(torch, fn):
 def k1_phase(torch, qa):
     """K1 against its plain version on the card, on 10-bit codes with
     weight*scale products of the main path's size (|sw * q| <= 1): single
-    leaves (a table of one) at every CNN leaf size and more; then tables
-    in place (the 8 CNN leaves; 40 leaves, two tables, some off the
-    16-byte grid; a pad row with sw = 0), bitwise against the same leaves
-    as tables of one. Then one aggregation (8 leaves) timed as the main
+    leaves (a table of one) at every CNN leaf size and more, the full-width
+    run's EuroSAT CNN leaves at K = 4 and 10 among them; then tables in
+    place (the 8 CNN leaves; 40 leaves, two tables, some off the 16-byte
+    grid; the 8 EuroSAT leaves at K = 4, and at K = 10 off the grid; a pad
+    row with sw = 0), bitwise against the same leaves as tables of one.
+    Then one aggregation (8 leaves) timed as the main
     path makes it (one table), as 8 tables of one, plain, and as 8
     ``addmv`` calls. Returns (max |kernel - plain|, timings, rows)."""
     g = torch.Generator(device="cuda").manual_seed(0)
     cases = [(n, k, False) for n in CNN_LEAF_SIZES for k in (5, 2)]
     cases += [(n, k, False) for n in (7, 2049, 100_003) for k in (1, 4, 10)]
+    cases += [(n, k, False) for n in EUROSAT_LEAF_SIZES for k in (4, 10)]
     cases += [(4608, 5, True), (62, 5, True)]    # pad row with sw = 0
+    cases += [(1_048_576, 4, True)]              # a cluster with no member
     max_err, rows = 0.0, []
     for n, k, pad in cases:
         acc = torch.randn(n, device="cuda", generator=g)
@@ -207,9 +234,12 @@ def k1_phase(torch, qa):
         max_err = max(max_err, err)
     sizes_40 = [int(n) for n in torch.randint(
         1, 5000, (40,), generator=torch.Generator().manual_seed(1))]
-    k = 5
-    for tag, sizes, shift in (("cnn", CNN_LEAF_SIZES, False),
-                              ("40 leaves", sizes_40, True)):
+    for tag, sizes, shift, k in (("cnn", CNN_LEAF_SIZES, False, 5),
+                                 ("40 leaves", sizes_40, True, 5),
+                                 ("eurosat cnn", EUROSAT_LEAF_SIZES, False,
+                                  4),
+                                 ("eurosat cnn", EUROSAT_LEAF_SIZES, True,
+                                  10)):
         buf = torch.randn(sum(sizes) + len(sizes), device="cuda",
                           generator=g)
         accs, off = [], 0
@@ -517,8 +547,12 @@ def k3_phase(torch, qa):
             max_err = max(max_err, err)
     sizes_40 = [int(n) for n in torch.randint(
         1, 5000, (40,), generator=torch.Generator().manual_seed(3))]
-    for tag, sizes, shift in (("cnn", CNN_LEAF_SIZES, False),
-                              ("40 leaves", sizes_40, True)):
+    for tag, sizes, shift, k in (("cnn", CNN_LEAF_SIZES, False, 5),
+                                 ("40 leaves", sizes_40, True, 5),
+                                 ("eurosat cnn", EUROSAT_LEAF_SIZES, False,
+                                  4),
+                                 ("eurosat cnn", EUROSAT_LEAF_SIZES, True,
+                                  10)):
         buf = torch.randn(sum(sizes) + len(sizes), device="cuda",
                           generator=g)
         accs, off = [], 0
@@ -1067,9 +1101,10 @@ def smoke_tokens(torch, generate, M):
     return res
 
 
-def records_equal(a, b):
+def records_equal(a, b, accuracy=True):
     """Every non-accuracy RoundRecord field equal; accuracy within
-    ACC_TOL_EARLY for the first EARLY_ROUNDS rounds, ACC_TOL_LATE after."""
+    ACC_TOL_EARLY for the first EARLY_ROUNDS rounds, ACC_TOL_LATE after
+    (not compared when ``accuracy`` is False)."""
     if len(a) != len(b):
         return False, f"{len(a)} vs {len(b)} rounds"
     for ra, rb in zip(a, b):
@@ -1077,12 +1112,222 @@ def records_equal(a, b):
         tol = ACC_TOL_EARLY if ra.round < EARLY_ROUNDS else ACC_TOL_LATE
         for f in da:
             if f == "accuracy":
+                if not accuracy:
+                    continue
                 if abs(da[f] - db[f]) > tol + 1e-12:
                     return False, (f"round {ra.round} accuracy {da[f]} "
                                    f"vs {db[f]}")
             elif da[f] != db[f]:
                 return False, f"round {ra.round} {f}: {da[f]} vs {db[f]}"
     return True, ""
+
+
+# Fault counters that phase 6's faulted runs must each fire in some round.
+DEADLINE_S = 2 * 3600.0     # phase 6's round deadline (rounds run 0.5-5 h)
+FAULT_COUNTERS = ("dropped_contacts", "corrupted_updates", "deadline_expired",
+                  "storm_events", "skipped_low_power")
+# the faulted run whose lost updates must reach K2's validity mask
+POISONED = "fedavg+trimmed_mean+poison"
+# The full-width run: examples/constellation_train.py's AutoFLSat (4 x 10
+# satellites, 3 days, EuroSAT) with energy, faults and a deadline; the
+# CPU replays its first CPU_ROUNDS rounds.
+CPU_ROUNDS = 3
+# Round 0 of the full-width run, card against CPU: a cluster model's
+# coordinate within rounding noise of a half step snaps to the other
+# 10-bit level on one side (a quarter step in the mean of 4 clusters).
+# 282-498 of its 1,055,082 coordinates do (tools/full_width_round0.py);
+# a wrong leaf or weight would move most of them.
+FW_SNAP_SHARE = 1e-3
+
+
+def faulted_runs(qs):
+    """Phase 6's faulted runs at the quickstart configuration, as (tag,
+    algorithm, FLConfig overrides, kernel): ``kernel`` is what each
+    aggregation launches once ("K1": a quantized cohort; "K2": a robust
+    one). In every run each round aggregates (each flush, for FedBuff), so
+    a run makes one launch a round. Every engine runs with faults; energy
+    is on in four runs (FedBuff's among them); the deadline closes rounds
+    under "carry" and "discard" with bounded retries; the poisoned
+    trimmed-mean run (POISONED) loses updates to drops (a retry budget of
+    one), which reach K2 as zero-weight rows through its validity mask.
+    It has one compromised satellite: with two (satellites 2 and 7, no
+    retries) the trimmed mean keeps a poisoned row, the model grows
+    without bound and is NaN from round 7, in the JAX package as in the
+    port (tests/test_torch_optional_engines.py::
+    test_two_attackers_diverge_as_in_reference)."""
+    from repro_torch.sim.energy import EnergyConfig
+    from repro_torch.sim.faults import (EnergyDrainAttack, FaultConfig,
+                                        PoisonAttack, StormConfig,
+                                        StormEvent)
+    K = qs.CLUSTERS * qs.SPC
+    storm = StormConfig(events=(StormEvent(6 * 3600.0, 4 * 3600.0, 1, 1.0),),
+                        outage_prob=0.5, drop_prob=0.5)
+    base = dict(mean_up_s=8 * 3600.0, mean_down_s=1800.0, drop_prob=0.3,
+                radiation_rate_per_day=1.0, seed=5)
+    # half the fleet starts below the battery floor
+    drained = EnergyConfig(battery_capacity_wh=10.0, min_soc=0.4,
+                           initial_soc=tuple(1.0 if k % 2 == 0 else 0.1
+                                             for k in range(K)))
+    return (
+        ("fedavg_sch+faults+energy+carry", "fedavg_sch",
+         dict(faults=FaultConfig(storms=storm, corrupt_prob=0.05, **base),
+              energy=drained, round_deadline_s=DEADLINE_S, quorum=3,
+              late_policy="carry", max_retries=3), "K1"),
+        ("fedprox_schv2+faults+discard", "fedprox_schv2",
+         dict(faults=FaultConfig(**base), round_deadline_s=DEADLINE_S,
+              late_policy="discard", max_retries=2), "K1"),
+        ("autoflsat+faults+energy", "autoflsat",
+         dict(faults=FaultConfig(storms=storm, **base), energy=drained),
+         "K1"),
+        ("fedavg+trimmed_mean+poison", "fedavg",
+         dict(aggregator="trimmed_mean", max_retries=1,
+              faults=FaultConfig(poison=PoisonAttack(satellites=(3,),
+                                                     scale=3.0),
+                                 drop_prob=0.4, seed=5)), "K2"),
+        ("fedbuff+median+faults+drain", "fedbuff",
+         dict(aggregator="median", energy=EnergyConfig(),
+              faults=FaultConfig(attack=EnergyDrainAttack(duty=0.5),
+                                 **base)), "K2"),
+        ("fedavg_sch+deadline_aware", "fedavg_sch",
+         dict(policy="deadline_aware", round_deadline_s=DEADLINE_S,
+              faults=FaultConfig(storms=storm, **base)), "K1"),
+        ("fedavg+energy_aware", "fedavg",
+         dict(policy="energy_aware", energy=drained), "K1"),
+        ("fedavg_sch+oracle", "fedavg_sch",
+         dict(policy="oracle", faults=FaultConfig(**base)), "K1"),
+    )
+
+
+def full_width_config(rounds=None):
+    """``constellation_train``'s experiment with the optional layers on:
+    battery energy over a mixed FLyCube / S-band power fleet (a quarter
+    of it starting below the floor), faults (outages, resets, contact and
+    ISL pair drops, SEU corruption, one storm), a 90-minute deadline with
+    quorum and carry, and three retries."""
+    from repro_torch import constellation_train
+    from repro_torch.sim.energy import EnergyConfig, mixed_fleet
+    from repro_torch.sim.faults import FaultConfig, StormConfig, StormEvent
+    from repro_torch.sim.hardware import FLYCUBE, SMALLSAT_SBAND
+    cfg = constellation_train.sim_config()
+    K = cfg.n_clusters * cfg.sats_per_cluster
+    fl = dataclasses.replace(
+        cfg.fl, max_rounds=rounds or cfg.fl.max_rounds,
+        energy=EnergyConfig(
+            fleet=mixed_fleet((FLYCUBE, SMALLSAT_SBAND), K),
+            battery_capacity_wh=20.0, min_soc=0.3,
+            initial_soc=tuple(0.2 if k % 4 == 0 else 0.9 for k in range(K))),
+        faults=FaultConfig(
+            mean_up_s=12 * 3600.0, mean_down_s=1800.0, drop_prob=0.2,
+            corrupt_prob=0.02, radiation_rate_per_day=0.5,
+            storms=StormConfig(events=(StormEvent(6 * 3600.0, 3 * 3600.0, 1,
+                                                  1.0),),
+                               outage_prob=0.5, drop_prob=0.5)),
+        round_deadline_s=5400.0, quorum=20, late_policy="carry",
+        max_retries=3)
+    return dataclasses.replace(cfg, fl=fl)
+
+
+def full_width_phase(torch, dev, reset_counts, read_counts):
+    """``[6 constellation_train]``: the full-width AutoFLSat of
+    ``repro_torch.constellation_train`` with energy, faults and a deadline
+    (``full_width_config``), every round on the card with one K1 launch a
+    round. Then round 0 alone on the card and on the CPU: the records
+    equal (accuracy within ACC_TOL_EARLY), the global parameters finite
+    and within rtol = atol = 1e-5 but for at most FW_SNAP_SHARE of the
+    coordinates, which sit one 10-bit level of a cluster model apart.
+    Then the first CPU_ROUNDS rounds on the CPU: their records must equal
+    the card's in every non-accuracy field (the global model is at chance
+    after round 0 and NaN after round 2, on the card and on the CPU
+    alike: SEU-corrupted updates reach the plain mean unfiltered)."""
+    from repro_torch import constellation_train
+    from repro_torch.sim.flystack import FLySTacK
+    from repro_torch.sim.hardware import SMALLSAT_SBAND
+    cfg = full_width_config()
+    t0 = time.perf_counter()
+    sim = FLySTacK(cfg, hw=SMALLSAT_SBAND, device=dev)
+    setup_s = time.perf_counter() - t0
+    reset_counts()
+    t0 = time.perf_counter()
+    res = sim.run()
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    n1, n2, n3, n4, n5, *_ = read_counts()
+    n_rounds = len(res.records)
+    summ = res.summary()
+    oap, feasible = constellation_train.power_report(res)
+    K = cfg.n_clusters * cfg.sats_per_cluster
+    print(f"[6 constellation_train] cuda: AutoFLSat, {K} satellites "
+          f"({cfg.n_clusters} x {cfg.sats_per_cluster}), {cfg.dataset} x "
+          f"{cfg.n_per_client} a client, energy + faults + deadline "
+          f"{cfg.fl.round_deadline_s:.0f} s: {n_rounds} rounds in "
+          f"{run_s:.3f} s ({run_s / max(n_rounds, 1):.4f} s a round; set-up "
+          f"{setup_s:.2f} s); K1 {n1} launches, K2 {n2}; epochs "
+          f"{[r.epochs for r in res.records]}; {json.dumps(summ)}; added "
+          f"OAP {oap:.0f} mW (feasible {feasible})")
+    finite = all(bool(torch.isfinite(p).all())
+                 for p in sim.algo.global_params.values())
+    acc = [round(r.accuracy, 4) for r in res.records]
+    print(f"[6 constellation_train] accuracy per round {acc}; corrupted "
+          f"updates per round {[r.corrupted_updates for r in res.records]};"
+          f" global model finite after {n_rounds} rounds: {finite}")
+    if n_rounds < CPU_ROUNDS or (n1, n2, n3, n4, n5) != (n_rounds, 0, 0, 0,
+                                                          0):
+        raise AssertionError(
+            f"full width: launches K1 {n1}, K2 {n2}, K3 {n3}, K4 {n4}, K5 "
+            f"{n5} over {n_rounds} rounds; expected one K1 launch a round")
+    # round 0 again, on the card and on the CPU: the global model after it
+    one = {}
+    for d in (dev, "cpu"):
+        s1 = FLySTacK(full_width_config(1), hw=SMALLSAT_SBAND, device=d)
+        one[d] = (s1.run().records,
+                  {k: v.cpu() for k, v in s1.algo.global_params.items()})
+    (rec_card, p_card), (rec_cpu, p_cpu) = one[dev], one["cpu"]
+    ok0, why0 = records_equal(res.records[:1], rec_card)
+    if ok0:
+        ok0, why0 = records_equal(rec_card, rec_cpu)
+    coords = sum(p.numel() for p in p_cpu.values())
+    snapped = sum(int((~torch.isclose(p_card[k], p_cpu[k], rtol=1e-5,
+                                      atol=1e-5)).sum()) for k in p_cpu)
+    worst = max(float((p_card[k] - p_cpu[k]).abs().max()) for k in p_cpu)
+    step = max(float(p.abs().max()) for p in p_cpu.values()) / 511
+    gap0 = round(512 * abs(rec_card[0].accuracy - rec_cpu[0].accuracy))
+    finite0 = all(bool(torch.isfinite(p).all())
+                  for p in (*p_card.values(), *p_cpu.values()))
+    print(f"[6 constellation_train] round 0 alone, card vs CPU: records "
+          f"equal {ok0} (accuracy gap {gap0} test samples) {why0}; global "
+          f"parameters finite {finite0}, outside rtol=atol=1e-5: {snapped} "
+          f"of {coords} "
+          f"(bar {FW_SNAP_SHARE:.0e} of them), max |diff| {worst:.3g} = "
+          f"{worst / step:.3f} of the largest leaf's 10-bit step")
+    if not (ok0 and finite0) or snapped > FW_SNAP_SHARE * coords:
+        raise AssertionError(f"full width, round 0: card and CPU differ: "
+                             f"{why0}; finite {finite0}; {snapped} "
+                             "coordinates outside 1e-5")
+    t0 = time.perf_counter()
+    cpu_res = FLySTacK(full_width_config(CPU_ROUNDS), hw=SMALLSAT_SBAND,
+                       device="cpu").run()
+    cpu_s = time.perf_counter() - t0
+    ok, why = records_equal(res.records[:CPU_ROUNDS], cpu_res.records,
+                            accuracy=False)
+    gaps = [round(512 * abs(a.accuracy - b.accuracy))
+            for a, b in zip(res.records, cpu_res.records)]
+    print(f"[6 constellation_train] cpu run, first {CPU_ROUNDS} rounds in "
+          f"{cpu_s:.1f} s (set-up included): non-accuracy fields equal {ok};"
+          f" accuracy gap in test samples {gaps} {why}")
+    if not ok:
+        raise AssertionError(f"full width: card and CPU records differ: "
+                             f"{why}")
+    return {"rounds": n_rounds, "run_s": run_s,
+            "s_per_round": run_s / n_rounds, "setup_s": setup_s,
+            "launches": [n1, n2, n3], "summary": summ, "finite": finite,
+            "oap_added_mw": float(oap), "power_feasible": bool(feasible),
+            "records": [dataclasses.asdict(r) for r in res.records],
+            "round0": {"acc_gap_samples": gap0, "finite": finite0,
+                       "outside_1e-5": snapped,
+                       "coords": coords, "max_abs_diff": worst,
+                       "step": step},
+            "cpu_rounds": CPU_ROUNDS, "cpu_s": cpu_s, "cpu_equal": ok,
+            "acc_gap_samples": gaps}
 
 
 def main() -> int:
@@ -1101,6 +1346,7 @@ def main() -> int:
     from repro_torch.kernels import swa_attention as K5
     from repro_torch.kernels import trimmed_agg as ta
     from repro_torch.orbit.constellation import WalkerStar, satellite_elements
+    from repro_torch.orbit.eclipse import eclipse_series
     from repro_torch.orbit.groundstations import gs_ecef
     from repro_torch.orbit.visibility import (elevation_mask_series,
                                               interplane_los_series)
@@ -1128,7 +1374,8 @@ def main() -> int:
     qs.full_precision()
     print("[2 precision] allow_tf32 = False for cuda matmul and cudnn "
           "(cuDNN runs float32 convolutions in TF32 by default, which "
-          "breaks parity with the CPU)")
+          "breaks parity with the CPU); cudnn deterministic = True (the "
+          "default heuristics may switch algorithms call to call)")
 
     t0 = time.perf_counter()
     sources = ["quant_agg", "trimmed_agg", "ssd_scan", "ssd_scan_tc",
@@ -1148,7 +1395,8 @@ def main() -> int:
     report["timing"] = {str(k): v for k, v in timing.items()}
     t5 = timing[5]
     print(f"[4 kernels] K1 quant_agg_stacked vs plain: {len(rows)} cases "
-          f"allclose (rtol=atol=1e-5; leaf tables of 8 and 40 bitwise equal "
+          f"allclose (rtol=atol=1e-5; the full-width EuroSAT CNN's leaves "
+          f"at K=4 and 10 among them; leaf tables of 8 and 40 bitwise equal "
           f"to tables of one), max |err| {max_err:.3g}; one aggregation (8 "
           f"leaves, K=5) eager / CUDA graph: kernel, one table "
           f"{t5['ms']:.4f} / {t5['graph_ms']:.4f} ms, 8 tables of one "
@@ -1214,6 +1462,27 @@ def main() -> int:
                                   "samples_gs": int(vis["cpu"].size),
                                   "samples_isl": int(los["cpu"].size),
                                   "windows_equal": bool(same_plan)}
+    # the eclipse series of the same constellation: dense on the plan's
+    # grid, packed on that grid and on the battery engine's (60 s)
+    ecl = {d: eclipse_series(c, raan, phase, incl, times, device=d)
+           for d in ("cuda", "cpu")}
+    ecl_flips = int((ecl["cuda"] != ecl["cpu"]).sum())
+    packed_equal = True
+    for grid in (times, np.arange(0.0, 2 * 86400, 60.0)):
+        pk = {d: eclipse_series(c, raan, phase, incl, grid, packed=True,
+                                device=d) for d in ("cuda", "cpu")}
+        packed_equal &= pk["cuda"].t0 == pk["cpu"].t0 and all(
+            np.array_equal(getattr(pk["cuda"], f), getattr(pk["cpu"], f))
+            for f in ("init_eclipsed", "trans_t", "offsets"))
+    print(f"[5 eclipse] eclipse samples differing card vs CPU: {ecl_flips} "
+          f"of {ecl['cpu'].size} (visibility: {flips} GS, {los_flips} ISL); "
+          f"{int(ecl['cpu'].mean() * 1000) / 10}% eclipsed; PackedEclipse "
+          f"arrays equal (30 s and 60 s grids): {packed_equal}")
+    report["eclipse_flips"] = {"samples": int(ecl["cpu"].size),
+                               "flips": ecl_flips,
+                               "packed_equal": bool(packed_equal)}
+    if not packed_equal:
+        raise AssertionError("PackedEclipse arrays differ card vs CPU")
 
     reset_counts()
     gpu, per_alg = {}, {}
@@ -1323,6 +1592,81 @@ def main() -> int:
                            "summary": res.summary(), "cpu_equal": ok,
                            "acc_gap_samples": gaps}
     report["engines"] = eng_report
+
+    # -- phase 6, faulted: faults, storms, energy, deadlines, policies ----
+    fault_report, fired = {}, dict.fromkeys(FAULT_COUNTERS, 0)
+    for tag, alg, over, kern in faulted_runs(qs):
+        cfg = qs.quickstart_config(alg)
+        cfg = dataclasses.replace(cfg, fl=dataclasses.replace(cfg.fl,
+                                                              **over))
+        reset_counts()
+        ta.masked_rows = 0
+        sim = FLySTacK(cfg, hw=SMALLSAT_SBAND, plan=plan, device=dev)
+        t_alg = time.perf_counter()
+        res = sim.run()
+        torch.cuda.synchronize()
+        t_alg = time.perf_counter() - t_alg
+        n1, n2, n3, n4, n5, *_ = read_counts()
+        masked = ta.masked_rows
+        k_launch[0] += n1
+        k_launch[1] += n2
+        n_rounds = len(res.records)
+        # every round of these runs aggregates (per flush for FedBuff):
+        # one launch of the cohort's kernel a round
+        want = (n_rounds, 0) if kern == "K1" else (0, n_rounds)
+        summ = res.summary()
+        for c in FAULT_COUNTERS:
+            fired[c] += int(any(getattr(r, c) > 0 for r in res.records))
+        finite = all(bool(torch.isfinite(p).all())
+                     for p in sim.algo.global_params.values())
+        on_card = all(p.is_cuda for p in sim.algo.global_params.values())
+        print(f"[6 {tag}] cuda: {json.dumps(summ)}; launches K1 {n1}, K2 "
+              f"{n2}, K3 {n3} in {n_rounds} rounds; K2 rows masked {masked};"
+              f" run {t_alg:.3f} s ({t_alg / max(n_rounds, 1):.4f} s a round)")
+        if not on_card or not finite:
+            raise AssertionError(f"{tag}: parameters off the card ({on_card})"
+                                 f" or not finite ({finite})")
+        if n_rounds < 3 or (n1, n2, n3, n4, n5) != (*want, 0, 0, 0):
+            raise AssertionError(
+                f"{tag}: launches K1 {n1}, K2 {n2}, K3 {n3}, K4 {n4}, K5 "
+                f"{n5} over {n_rounds} rounds; expected one {kern} launch a "
+                "round")
+        if tag == POISONED:
+            # the cohort's pad rows (fewer selected than clients_per_round)
+            # carry weight 0 too: more masked rows than pads means lost
+            # updates went through K2's mask
+            pads = sum(cfg.fl.clients_per_round - len(r.participants)
+                       for r in res.records)
+            lost = sum(r.retries_exhausted for r in res.records)
+            print(f"[6 {tag}] K2 rows masked {masked}: {pads} pad rows, "
+                  f"{lost} updates lost at the retry budget")
+            if not (lost > 0 and masked > pads):
+                raise AssertionError(f"{tag}: no lost update reached K2's "
+                                     f"mask ({masked} rows masked, {pads} "
+                                     f"pads, {lost} lost)")
+        cpu_res = FLySTacK(cfg, hw=SMALLSAT_SBAND, plan=plan,
+                           device="cpu").run()
+        ok, why = records_equal(res.records, cpu_res.records)
+        gaps = [round(512 * abs(a.accuracy - b.accuracy))
+                for a, b in zip(res.records, cpu_res.records)]
+        print(f"[6 {tag}] cpu run: records equal {ok}; accuracy gap per "
+              f"round in test samples {gaps} {why}")
+        if not ok:
+            raise AssertionError(f"{tag}: card and CPU records differ: {why}")
+        fault_report[tag] = {"rounds": n_rounds, "launches": [n1, n2, n3],
+                             "masked_rows": masked, "run_s": t_alg,
+                             "s_per_round": t_alg / n_rounds,
+                             "summary": summ, "cpu_equal": ok,
+                             "acc_gap_samples": gaps}
+    report["faulted"] = fault_report
+    print(f"[6 faults] rounds with each counter > 0, by run: {fired}")
+    if not all(fired.values()):
+        raise AssertionError(f"a fault counter never fired: {fired}")
+
+    # -- phase 6, full width: constellation_train with the optional layers
+    report["full_width"] = full_width_phase(torch, dev, reset_counts,
+                                            read_counts)
+    k_launch[0] += report["full_width"]["launches"][0]
 
     # -- phase 7: streamed in-place aggregation through K3 ---------------
     from repro_torch.core.aggregation import quantized_weighted_average

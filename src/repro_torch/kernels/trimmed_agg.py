@@ -38,6 +38,9 @@ from repro_torch.kernels import _build
 #: kernel launches made by :func:`trimmed_agg_stacked` and
 #: :func:`trimmed_agg_stacked_leaves` in this process (one a table)
 launches = 0
+#: rows the validity mask marked invalid in the cohorts those launches
+#: took (a cohort counted once, however many tables it took)
+masked_rows = 0
 #: leaves in one K2 launch (``kMaxLeaves`` in ``csrc/trimmed_agg.cu``)
 TABLE_CAPACITY = 32
 #: K up to which the rank weights and the validity mask travel by value
@@ -193,12 +196,16 @@ def trimmed_agg_stacked_leaves(xs, rank_weights, valid=None):
         return []
     dev = xs[0].device
     if dev.type == "cuda":
+        global masked_rows
         outs = [torch.empty(x.shape[1:], dtype=torch.float32, device=dev)
                 for x in xs]
         k, tables = _leaves(xs, outs)
+        mask = _host_mask(valid, k)
         params, _keep = _rank_params(_checked_weights(rank_weights, k, dev),
-                                     _host_mask(valid, k), k, dev)
+                                     mask, k, dev)
         _launch(tables, params, dev)
+        if mask is not None:
+            masked_rows += int(k - mask.sum())
         return outs
     k, _ = _leaves(xs)
     rw = _checked_weights(rank_weights, k, dev)

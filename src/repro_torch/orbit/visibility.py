@@ -9,7 +9,7 @@ extraction is copied as it is.
 """
 from __future__ import annotations
 
-from typing import List, Tuple
+from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -164,3 +164,30 @@ def access_windows(c: WalkerStar, raan, phase, incl, times, gs,
     return [list(zip(sk.tolist(), ek.tolist(), gk.tolist()))
             for sk, ek, gk in zip(np.split(s, bounds), np.split(e, bounds),
                                   np.split(gsi, bounds))]
+
+
+def transitions_from_bool_matrix(vis: np.ndarray, times: np.ndarray,
+                                 prev: Optional[np.ndarray] = None):
+    """State transitions of a (T, K) boolean series, one diff pass.
+
+    Returns flat ``(sat, t)`` arrays sorted by (sat, t). A transition
+    timestamped ``times[i]`` means the series changes value between
+    samples i-1 and i — the cell-hold convention: sample i's value holds
+    over ``[times[i], times[i+1])``. Pass ``prev`` (the (K,) sample
+    preceding ``times[0]``) when sweeping a long series chunk by chunk so
+    cross-chunk transitions are not lost; with ``prev=None`` the first
+    sample is the initial state and produces no transition.
+    """
+    vis = np.asarray(vis, bool)
+    if vis.ndim != 2:
+        raise ValueError("(T, K) matrix expected")
+    times = np.asarray(times, np.float64)
+    if prev is None:
+        d = vis[1:] != vis[:-1]
+        base = 1
+    else:
+        d = vis != np.concatenate([np.asarray(prev, bool)[None], vis[:-1]])
+        base = 0
+    ti, ki = np.nonzero(d)
+    order = np.lexsort((ti, ki))
+    return ki[order], times[ti[order] + base]

@@ -36,9 +36,14 @@ ALGORITHMS = ("fedavg", "fedavg_sch", "autoflsat")
 def full_precision() -> None:
     """Keep float32 math in float32 on the card: cuDNN runs float32
     convolutions in TF32 by default (about three decimal digits), which
-    would break parity with the CPU and with the JAX reference."""
+    would break parity with the CPU and with the JAX reference. Also pin
+    cuDNN to deterministic algorithms: under its default heuristics a
+    call may take another algorithm, whose rounding a training run can
+    amplify (constellation_train's first EuroSAT round then moves by 10
+    test samples of 512; tools/full_width_round0.py)."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
 
 
 def quickstart_config(algorithm: str) -> SimConfig:

@@ -1,4 +1,6 @@
+from repro_torch.sim.energy import EnergyConfig, EnergySim, mixed_fleet
 from repro_torch.sim.events import Event, EventQueue, EventStats, WorldTimeline
+from repro_torch.sim.faults import EnergyDrainAttack, FaultConfig, FaultSim
 from repro_torch.sim.hardware import (FLYCUBE, SMALLSAT_SBAND, FleetProfile,
                                       HardwareProfile, PowerModes)
 
@@ -6,4 +8,6 @@ from repro_torch.sim.hardware import (FLYCUBE, SMALLSAT_SBAND, FleetProfile,
 # circular import with repro_torch.core.spaceify, as in the reference.
 
 __all__ = ["FLYCUBE", "SMALLSAT_SBAND", "FleetProfile", "HardwareProfile",
-           "PowerModes", "Event", "EventQueue", "EventStats", "WorldTimeline"]
+           "PowerModes", "EnergyConfig", "EnergySim", "mixed_fleet",
+           "FaultConfig", "FaultSim", "EnergyDrainAttack",
+           "Event", "EventQueue", "EventStats", "WorldTimeline"]

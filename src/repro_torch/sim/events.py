@@ -1,7 +1,12 @@
-"""Discrete-event simulator core: a deterministic priority-queue clock.
+"""Discrete-event simulator core: a deterministic priority-queue clock over
+the event-shaped data layer.
 
-Port of the JAX package's ``sim/events.py`` (pure numpy, copied). Two
-primitives:
+Port of the JAX package's ``sim/events.py`` (pure numpy, copied). The
+sources are CSR contact windows (``repro_torch.core.contact_plan``), packed
+eclipse terminator crossings (``repro_torch.orbit.eclipse.PackedEclipse``
+inside ``repro_torch.sim.energy``) and CSR fault outage / reset / storm
+timelines (``repro_torch.sim.faults``). Two primitives turn them into one
+discrete-event clock:
 
 :class:`EventQueue`
     A heap of :class:`Event` records with the **deterministic ordering
@@ -9,22 +14,29 @@ primitives:
     kind's canonical priority (state transitions resolve before the
     decisions that read them at the same instant), then ``key`` (the
     satellite / cluster index — so simultaneous returns pop in satellite
-    order), then the insertion sequence number as the last-resort
-    tiebreaker.
+    order, the FedBuff tie-break), then the insertion sequence number as
+    the last-resort tiebreaker.
 
 :class:`WorldTimeline`
-    The *world* events drawn once from the contact plan's CSR arrays as
-    globally time-sorted per-kind streams, resolved up to each decision
-    time in one vectorized pass per kind (:meth:`advance_through`).
-    This slice of the port carries the contact-window sources only; the
-    eclipse, fault and storm sources of the reference arrive with their
-    engines.
+    The *world* events — contact-window open/close, eclipse entry/exit,
+    fault outage/recovery, radiation resets, storms — drawn once from the
+    CSR arrays as globally time-sorted per-kind streams.
+    :meth:`WorldTimeline.advance_through` resolves every world event up to
+    a decision time in one vectorized pass per kind (a single
+    ``np.searchsorted`` cursor advance); :meth:`events_between` and
+    :meth:`iter_events` materialize the same events one at a time, in
+    queue order.
+
+Decision events (round barriers for the synchronous engines, client
+returns for FedBuffSat) go through the :class:`EventQueue`; bulk world
+events go through the batched timeline. ``repro_torch.core.spaceify``
+consumes both.
 """
 from __future__ import annotations
 
 import dataclasses
 import heapq
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
 
@@ -187,8 +199,13 @@ class WorldTimeline:
     * :meth:`advance_through` — the hot path: advance every cursor to
       ``t`` with one ``searchsorted`` per kind and account the skipped
       events in bulk (no per-event Python work);
-    * :meth:`events_between` — materialize the same events one
-      :class:`Event` at a time in canonical queue order (tests).
+    * :meth:`events_between` / :meth:`iter_events` — materialize the same
+      events one :class:`Event` at a time in canonical queue order.
+
+    Battery-floor crossings cannot be precomputed here — they depend on
+    the activity the FL engines bill — so the engines report them via
+    :meth:`note_eligibility`, which diffs the gating mask between
+    decision points and accounts the crossings at the decision timestamp.
     """
 
     def __init__(self):
@@ -198,6 +215,7 @@ class WorldTimeline:
         self._cursor: List[int] = []
         self.t = -np.inf
         self.stats = EventStats()
+        self._elig_mask: Optional[np.ndarray] = None
 
     # -- construction ---------------------------------------------------
     def add_source(self, kind: str, times, keys) -> None:
@@ -210,13 +228,31 @@ class WorldTimeline:
         self._cursor.append(0)
 
     @classmethod
-    def for_fl(cls, plan) -> "WorldTimeline":
-        """Build the world timeline of one FL run from the contact plan's
-        window arrays (contact open/close)."""
+    def for_fl(cls, plan, energy=None, faults=None) -> "WorldTimeline":
+        """Build the world timeline of one FL run from the same engines
+        the round loop queries: the contact plan's window arrays, the
+        energy engine's terminator crossings, the fault engine's outage
+        intervals and reset times. Sources whose subsystem is off are
+        simply absent."""
         tl = cls()
         sat, starts, ends = plan.window_events()
         tl.add_source(CONTACT_OPEN, starts, sat)
         tl.add_source(CONTACT_CLOSE, ends, sat)
+        if energy is not None:
+            sat, t, entering = energy.transition_events()
+            tl.add_source(ECLIPSE_ENTRY, t[entering], sat[entering])
+            tl.add_source(ECLIPSE_EXIT, t[~entering], sat[~entering])
+        if faults is not None:
+            sat, starts, ends = faults.outage_events()
+            tl.add_source(FAULT_DOWN, starts, sat)
+            tl.add_source(FAULT_UP, ends, sat)
+            sat, t = faults.reset_events()
+            tl.add_source(RADIATION_RESET, t, sat)
+            if getattr(faults, "has_storms", False):
+                # storm events are keyed by *cluster*, not satellite
+                cluster, t_begin, t_end = faults.storm_timeline_events()
+                tl.add_source(STORM_BEGIN, t_begin, cluster)
+                tl.add_source(STORM_END, t_end, cluster)
         return tl
 
     # -- bulk accounting -------------------------------------------------
@@ -243,6 +279,20 @@ class WorldTimeline:
         self.t = t
         self.stats.batched_passes += 1
         return n_total
+
+    def note_eligibility(self, mask, t: float) -> None:
+        """Report the battery-gating mask at a decision point; crossings
+        since the previous report are accounted as BATTERY_FLOOR /
+        BATTERY_RECOVER events at ``t`` (the engines bill activity
+        between decision points, so the exact crossing instant is not
+        observable — the decision point is when the crossing matters)."""
+        mask = np.asarray(mask, bool)
+        if self._elig_mask is not None:
+            self.stats.add(BATTERY_FLOOR,
+                           int(np.sum(self._elig_mask & ~mask)))
+            self.stats.add(BATTERY_RECOVER,
+                           int(np.sum(~self._elig_mask & mask)))
+        self._elig_mask = mask.copy()
 
     # -- per-event view (baseline / tests / tracing) ---------------------
     def events_between(self, t: float) -> List[Event]:
@@ -274,3 +324,25 @@ class WorldTimeline:
         order = np.lexsort((ks, ps, ts))
         return [Event(float(ts[i]), str(kinds[i]), int(ks[i]))
                 for i in order]
+
+    def iter_events(self, t_end: float = np.inf) -> Iterator[Event]:
+        """Stream every remaining event up to ``t_end`` one at a time in
+        canonical order (a merged walk over the sorted sources)."""
+        heap = []
+        for i, times in enumerate(self._times):
+            c = self._cursor[i]
+            if c < len(times) and times[c] <= t_end:
+                heap.append((times[c], PRIORITY[self._kinds[i]],
+                             int(self._keys[i][c]), i, c))
+        heapq.heapify(heap)
+        while heap:
+            t, p, k, i, c = heapq.heappop(heap)
+            yield Event(t, self._kinds[i], k)
+            self.stats.add(self._kinds[i])
+            self._cursor[i] = c + 1
+            self.t = max(self.t, t)
+            times = self._times[i]
+            if c + 1 < len(times) and times[c + 1] <= t_end:
+                heapq.heappush(heap, (times[c + 1],
+                                      PRIORITY[self._kinds[i]],
+                                      int(self._keys[i][c + 1]), i, c + 1))

@@ -211,6 +211,11 @@ class FLySTacK:
     def run(self) -> SimResult:
         cfg = self.cfg
         fl = cfg.fl
+        if fl.faults is not None and fl.faults.seed is None:
+            # inherit the experiment seed into the fault stream (a numpy
+            # stream independent of fl.seed's training draws)
+            fl = dataclasses.replace(
+                fl, faults=dataclasses.replace(fl.faults, seed=cfg.seed))
         if cfg.policy is not None:
             # experiment-level selection-policy override
             fl = dataclasses.replace(fl, policy=cfg.policy)

@@ -1,8 +1,11 @@
 """Hardware constraints (paper §4.1.2 + Appendix C / Table 2).
 
 Port of the JAX package's ``sim/hardware.py`` (pure numpy, copied), so
-link and compute times are bitwise those of the reference. The power
-helpers (``oap_added_mw``, ``power_feasible``) come with the energy slice.
+link and compute times are bitwise those of the reference.
+
+Power: duty-cycle model over the four FLyCube power modes; orbital average
+power (OAP) added by FL = sum(duty_i * P_i) (``oap_added_mw``), checked
+against the eclipse-derated solar input by ``power_feasible``.
 
 Data rate: transmission time = bytes / rate; the FLyCube profile is the
 measured 1.6 KB/s LoRa CubeSat-to-CubeSat rate with 12.5 W supply.
@@ -10,13 +13,14 @@ measured 1.6 KB/s LoRa CubeSat-to-CubeSat rate with 12.5 W supply.
 Heterogeneous fleets: a :class:`FleetProfile` vectorizes a
 ``Sequence[HardwareProfile]`` into per-satellite ``(K,)`` arrays of epoch
 times, link rates and power figures. It is the round engine's timing
-source (``repro_torch.core.spaceify``); the battery simulation of the
-reference bills the same fleet (not ported yet).
+source (``repro_torch.core.spaceify``) *and* the default fleet the battery
+simulation bills (``repro_torch.sim.energy``), so timing and power always
+describe the same constellation — the shared-fleet invariant.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Sequence, Union
+from typing import Dict, Optional, Sequence, Union
 
 import numpy as np
 
@@ -29,8 +33,9 @@ class PowerModes:
     ``idle`` is the bus keep-alive draw; ``radio_tx`` keys the radio with
     the ML unit idle; ``training`` runs local SGD with the radio silent;
     ``training_tx`` does both at once. The battery integrator
-    (the reference's ``sim/energy.py``) bills idle continuously and the *difference*
-    ``mode - idle`` for FL activity, so nothing is double-counted."""
+    (``repro_torch.sim.energy``) bills idle continuously and the
+    *difference* ``mode - idle`` for FL activity, so nothing is
+    double-counted."""
     idle: float = 760.0
     radio_tx: float = 1613.0
     training: float = 2178.0
@@ -178,3 +183,43 @@ SMALLSAT_SBAND = HardwareProfile(
     uplink_rate_bps=0.5e6 * 8,
     isl_rate_bps=20e3 * 8,        # paper Fig 9: 20 KB/s min for inter-plane
 )
+
+
+def oap_added_mw(duty: Dict[str, float], power: PowerModes = PowerModes()
+                 ) -> float:
+    """Added orbital-average power of FL tasks given duty cycles.
+
+    Matches Table 2's convention: OAP_added = sum_i duty_i * P_mode_i
+    (the paper bills the full mode draw to the FL workload — e.g.
+    0.8*2178 + 0.2*3138 ~= 2370 mW for the 5-FLyCube constellation)."""
+    modes = {"idle": power.idle, "radio_tx": power.radio_tx,
+             "training": power.training, "training_tx": power.training_tx}
+    return sum(d * modes[m] for m, d in duty.items())
+
+
+def analytic_eclipse_fraction(orbit_radius_m: Optional[float] = None
+                              ) -> float:
+    """Cylindrical-umbra eclipse fraction ``asin(R_E / a) / pi`` of a
+    circular orbit whose plane contains the sun — the worst-case (and,
+    for the paper's polar constellations, typical) shadow arc. Defaults
+    to the 500 km WalkerStar altitude (~0.378)."""
+    from repro_torch.orbit.constellation import R_EARTH, WalkerStar
+    a = WalkerStar(1, 1).radius_m if orbit_radius_m is None \
+        else float(orbit_radius_m)
+    return float(np.arcsin(R_EARTH / a) / np.pi)
+
+
+def power_feasible(duty: Dict[str, float], profile: HardwareProfile,
+                   eclipse_fraction: Optional[float] = None) -> bool:
+    """Static feasibility: idle + added-FL draw must fit the *average*
+    solar input. ``power_generation_mw`` is the panel's sunlit output
+    (the battery integrator applies it only outside eclipse), so the
+    average input is derated by the orbit's eclipse fraction — by default
+    the analytic ``asin(R_E/a)/pi`` arc of the 500 km constellation.
+    Pass ``eclipse_fraction=0.0`` to read ``power_generation_mw`` as an
+    orbital average instead (the seed convention, optimistic by exactly
+    the eclipse fraction)."""
+    if eclipse_fraction is None:
+        eclipse_fraction = analytic_eclipse_fraction()
+    total = profile.power.idle + oap_added_mw(duty, profile.power)
+    return total <= profile.power_generation_mw * (1.0 - eclipse_fraction)

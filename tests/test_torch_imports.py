@@ -31,7 +31,10 @@ def test_module_list_covers_the_slice():
               "repro_torch.kernels.swa_attention",
               "repro_torch.models.layers", "repro_torch.models.ssm",
               "repro_torch.models.moe", "repro_torch.models.model",
-              "repro_torch.launch.serve", "repro_torch.launch.serve_batched"):
+              "repro_torch.launch.serve", "repro_torch.launch.serve_batched",
+              "repro_torch.sim.faults", "repro_torch.sim.energy",
+              "repro_torch.orbit.eclipse", "repro_torch.energy_aware",
+              "repro_torch.constellation_train"):
         assert m in mods
 
 

@@ -210,8 +210,8 @@ def test_trimmed_agg_table_bitwise_per_leaf(n_leaves, masked):
 @pytest.mark.parametrize("kind", ["trimmed_mean", "median"])
 def test_robust_aggregation_is_one_k2_launch(kind):
     """A trimmed-mean or median aggregation of a padded cohort of the
-    CNN's 8 leaves, and a median FedBuff flush, each make one K2 launch;
-    both agree with the CPU route within 1e-5 / 1e-6."""
+    CNN's 8 leaves, and a median FedBuff flush, each make one K2 launch
+    (the aggregation's two pad rows counted once as masked); both agree with the CPU route within 1e-5 / 1e-6."""
     from repro_torch.core import aggregation as TA
     _need_cuda()
     rng = np.random.default_rng(5)
@@ -226,11 +226,12 @@ def test_robust_aggregation_is_one_k2_launch(kind):
     agg = TA.make_robust_aggregator(kind)
     card_in = {n: torch.from_numpy(v).cuda() for n, v in cohort.items()}
     zeros = {n: torch.zeros(s) for n, s in shapes.items()}
-    before = K2.launches
+    before, masked = K2.launches, K2.masked_rows
     card, n_card = agg.aggregate(card_in, w,
                                  {n: z.cuda() for n, z in zeros.items()})
     torch.cuda.synchronize()
     assert K2.launches == before + 1
+    assert K2.masked_rows == masked + 2       # the two pad rows, once
     cpu, n_cpu = agg.aggregate({n: torch.from_numpy(v)
                                 for n, v in cohort.items()}, w, zeros)
     assert n_card == n_cpu

@@ -202,12 +202,17 @@ def test_default_source_dataset_is_seeded_and_skewed():
 
 
 def test_port_refuses_what_it_does_not_have(plans):
-    """Every engine of ``ALGORITHMS`` and every aggregator constructs; the
-    layers still to port (energy, faults, a finite deadline, max_retries)
-    raise, and so does a kernel route other than 'auto'."""
+    """Every engine of ``ALGORITHMS`` constructs under every aggregator and
+    with the optional layers on (energy, faults, a finite deadline,
+    max_retries); the reference's configuration errors raise its
+    ``ValueError``s (an energy-drain attack without energy, a bad
+    late_policy, max_retries < 0, round_deadline_s <= 0, quorum < 1), and
+    so does a kernel route other than 'auto'."""
     from repro_torch.core.aggregation import ROBUST_AGGREGATORS
     from repro_torch.core.spaceify import ALGORITHMS, FedAvgSat
     from repro_torch.data.synthetic import make_federated_dataset
+    from repro_torch.sim.energy import EnergyConfig
+    from repro_torch.sim.faults import EnergyDrainAttack, FaultConfig
     ds = make_federated_dataset("femnist", 10, 16, device="cpu")
     for alg, (cls, over) in ALGORITHMS.items():
         for agg in (None, "mean", *ROBUST_AGGREGATORS):
@@ -216,12 +221,24 @@ def test_port_refuses_what_it_does_not_have(plans):
                                                    aggregator=agg), **over))
             assert eng.name == alg.split("_")[0]
             assert (eng.aggregator is None) == (agg in (None, "mean"))
-    for bad in (dict(energy=object()), dict(faults=object()),
-                dict(round_deadline_s=3600.0), dict(max_retries=2)):
+        eng = cls(plans[1], SMALLSAT_SBAND, ds, dataclasses.replace(
+            FLConfig(batch_size=16, energy=EnergyConfig(),
+                     faults=FaultConfig(attack=EnergyDrainAttack()),
+                     round_deadline_s=3600.0, max_retries=2), **over))
+        assert eng.energy is not None and eng.faults is not None
+        assert eng._deadline_on
+    for bad, match in ((dict(faults=FaultConfig(attack=EnergyDrainAttack())),
+                        "requires FLConfig.energy"),
+                       (dict(late_policy="queue"), "late_policy"),
+                       (dict(max_retries=-1), "max_retries"),
+                       (dict(round_deadline_s=0.0), "round_deadline_s"),
+                       (dict(round_deadline_s=-5.0), "round_deadline_s"),
+                       (dict(quorum=0), "quorum")):
         for cls, over in ALGORITHMS.values():
-            with pytest.raises(NotImplementedError, match="Slice B"):
+            with pytest.raises(ValueError, match=match):
                 cls(plans[1], SMALLSAT_SBAND, ds,
-                    FLConfig(batch_size=16, **bad))
+                    dataclasses.replace(FLConfig(batch_size=16, **bad),
+                                        **over))
     with pytest.raises(ValueError, match="auto"):
         FedAvgSat(plans[1], SMALLSAT_SBAND, ds,
                   FLConfig(batch_size=16, quant_kernel="pallas"))
