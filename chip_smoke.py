@@ -66,6 +66,18 @@ Phases, each printing its own line; any failure exits non-zero:
                   the card; a torch.profiler breakdown of one mixtral
                   prefill; the smoke configs' greedy tokens, card against
                   CPU, in float32;
+ 10. training   — (a) one float32 train step of each of the ten smoke
+                  configs, card against CPU (loss and grad norm); (b) the
+                  gradient of mamba2-1.3b at full widths, depth cut to 4
+                  layers, card against CPU, every leaf; (c) the
+                  whole-config mamba2-1.3b hierarchical run of
+                  ``repro_torch.launch.train`` (2 clusters, 8 steps of 4 x
+                  1024 tokens, bfloat16, 10-bit sync every 4 steps):
+                  seconds a cluster-step, tokens/s, sync seconds, peak
+                  memory, a falling loss, clusters bitwise equal after
+                  every sync, no K1-K5 launch; a torch.profiler breakdown
+                  of one step; (d) a reduced HFL state saved on the card,
+                  restored on the CPU bitwise, a flipped bit caught;
 and then the ``kernels`` JSON line, the card's name and power limit, and
 the result line. Each path runs with every launch count set to 0 just
 before it and read just after. Details go to
@@ -894,6 +906,7 @@ def serve_phase(torch, reset_counts, read_counts):
     kernels, then the plain-route and card-vs-CPU checks."""
     from repro_torch.launch.serve import generate
     from repro_torch.models import model as M
+    from repro_torch.optim.optimizers import tree_leaves
     out = {}
     for name, plen, n_layers, impl in SERVE_RUNS:
         cfg = serve_config(name, n_layers, impl)
@@ -904,7 +917,7 @@ def serve_phase(torch, reset_counts, read_counts):
                                 device="cuda", generator=gen)
         torch.cuda.synchronize()
         init_s = time.perf_counter() - t0
-        n_params = sum(t.numel() for t in _leaves(params))
+        n_params = sum(t.numel() for t in tree_leaves(params))
         torch.cuda.reset_peak_memory_stats()
         stats = {}
         reset_counts()
@@ -1012,23 +1025,32 @@ PROFILE_GROUPS = (
 def prefill_profile(torch, M, params, cfg, prompts):
     """One prefill through the kernels (``models.model.prefill``, without
     ``generate``'s cache handoff) timed warm on the host clock, then one
-    under ``torch.profiler``: device time by kernel and by PROFILE_GROUPS,
-    the device's busy time (union of kernel intervals) and its idle share
-    of the host's wall time of the profiled window."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    under ``torch.profiler`` (``profile_window``)."""
     with torch.inference_mode():
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         M.prefill(params, cfg, {"tokens": prompts})
         torch.cuda.synchronize()
         warm = time.perf_counter() - t0
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            M.prefill(params, cfg, {"tokens": prompts})
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
+        prof = profile_window(
+            torch, lambda: M.prefill(params, cfg, {"tokens": prompts}),
+            PROFILE_GROUPS)
+    return {"warm_prefill_s": warm, **prof}
+
+
+def profile_window(torch, fn, groups_of):
+    """``fn()`` once under ``torch.profiler``: device time by kernel and by
+    the kernel-name groups ``groups_of`` (first match wins), the device's
+    busy time (union of kernel intervals) and its idle share of the host's
+    wall time of the window."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
     spans, by_name = [], {}
     for ev in prof.events():
         if ev.device_type != DeviceType.CUDA:
@@ -1045,34 +1067,29 @@ def prefill_profile(torch, M, params, cfg, prompts):
             busy += b - end
             end = b
     busy /= 1e6
-    groups = {g: 0.0 for g, _ in PROFILE_GROUPS}
+    groups = {g: 0.0 for g, _ in groups_of}
     groups["other"] = 0.0
     for kname, sec in by_name.items():
         low = kname.lower()
-        group = next((g for g, pats in PROFILE_GROUPS
+        group = next((g for g, pats in groups_of
                       if any(pt.lower() in low for pt in pats)), "other")
         groups[group] += sec
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:15]
-    return {"warm_prefill_s": warm, "wall_s": wall, "busy_s": busy,
+    # the aten ops that launched the device time (self time, not children)
+    ops = sorted(((e.key, getattr(e, "self_device_time_total", 0.0) / 1e6)
+                  for e in prof.key_averages()
+                  if e.key.startswith("aten::")), key=lambda kv: -kv[1])[:15]
+    return {"wall_s": wall, "busy_s": busy,
             "idle": 1.0 - busy / wall if spans else None,
             "device_events": len(spans), "groups": groups,
-            "top_kernels": [{"name": k[:160], "s": v} for k, v in top]}
-
-
-def _leaves(tree):
-    if isinstance(tree, dict):
-        return [t for v in tree.values() for t in _leaves(v)]
-    if isinstance(tree, tuple):
-        return [t for v in tree for t in _leaves(v)]
-    return [tree]
+            "top_kernels": [{"name": k[:160], "s": v} for k, v in top],
+            "top_ops": [{"name": k, "s": v} for k, v in ops if v > 0]}
 
 
 def _to(tree, device):
-    if isinstance(tree, dict):
-        return {k: _to(v, device) for k, v in tree.items()}
-    if isinstance(tree, tuple):
-        return tuple(_to(v, device) for v in tree)
-    return tree.to(device)
+    """Every tensor of a tree (dicts, tuples, NamedTuples) on ``device``."""
+    from repro_torch.optim.optimizers import tree_map
+    return tree_map(lambda t: t.to(device), tree)
 
 
 def smoke_tokens(torch, generate, M):
@@ -1099,6 +1116,258 @@ def smoke_tokens(torch, generate, M):
             raise AssertionError(f"{name} smoke: greedy tokens differ card "
                                  f"vs CPU: {card.tolist()} vs {cpu.tolist()}")
     return res
+
+
+# Phase 10. The whole-config HFL run of launch/train.py: mamba2-1.3b, 2
+# clusters, 10-bit QuAFL sync every 4 steps, 8 steps of 4 x 1024 tokens a
+# cluster, bfloat16 compute over float32 master weights and moments,
+# remat "full" (the config's own).
+TRAIN_ARGV = ["--arch", "mamba2-1.3b", "--hfl", "--clusters", "2",
+              "--sync-every", "4", "--quant-bits", "10", "--steps", "8",
+              "--batch", "4", "--seq", "1024", "--warmup", "2",
+              "--dtype", "bfloat16", "--log-every", "1"]
+# Card against CPU in float32 (TF32 off): the loss and grad norm of one
+# step within 1e-4 relative (the CPU parity bar against the JAX package
+# is 1e-5 on the loss); at full widths every gradient leaf within 1e-3 in
+# relative L2 (4 layers; phase 9's float32 prefill logits sit near 1.5e-4
+# from the plain route over 48).
+TRAIN_RTOL, TRAIN_GRAD_REL_L2 = 1e-4, 1e-3
+FULL_TRAIN_LAYERS, FULL_TRAIN_SEQ = 4, 256
+# kernel name patterns of the training profile's groups, first match wins
+TRAIN_PROFILE_GROUPS = (
+    ("matmul (cuBLAS)", ("gemm", "nvjet", "xmma", "cutlass", "sm90_")),
+    ("scans (cumsum)", ("scan", "cumsum")),
+    ("embedding, gather and scatter", ("embedding", "index", "gather",
+                                       "scatter")),
+    ("reductions (sums, norms, logsumexp)", ("reduce", "softmax", "norm")),
+    ("casts and copies (stack, cat)", ("copy", "cast", "CatArray")),
+    ("elementwise", ("elementwise",)),
+)
+
+
+def _smoke_batch(torch, cfg, b, seq, seed):
+    """A bigram batch of ``cfg``'s vocab on the CPU, plus the stub frames /
+    patches its encoder or vision tower reads."""
+    from repro_torch.data.tokens import synthetic_lm_batches
+    batch = next(synthetic_lm_batches(cfg.vocab, b, seq, 1, seed=seed,
+                                      device="cpu"))
+    gen = torch.Generator().manual_seed(seed)
+    if cfg.encoder is not None:
+        batch["frames"] = torch.randn(
+            (b, cfg.encoder.n_frames, cfg.d_model), generator=gen) * 0.02
+    if cfg.vision is not None:
+        batch["patches"] = torch.randn(
+            (b, cfg.vision.n_img_tokens, cfg.vision.d_vision),
+            generator=gen) * 0.02
+    return batch
+
+
+def train_phase(torch, reset_counts, read_counts):
+    """Phase 10: (a) one float32 train step of each smoke config, card
+    against CPU; (b) the gradient of mamba2-1.3b at full widths, depth
+    cut to 4, card against CPU; (c) the whole-config HFL run through
+    ``repro_torch.launch.train``; (d) a reduced HFL state saved on the
+    card and restored on the CPU, and a flipped byte caught."""
+    import tempfile
+
+    import numpy as np
+
+    from repro_torch.checkpoint import (ChecksumError, restore_pytree,
+                                        save_pytree)
+    from repro_torch.configs import ARCH_IDS, get_config, get_smoke_config
+    from repro_torch.core import hierarchy as H
+    from repro_torch.data.tokens import synthetic_lm_batches
+    from repro_torch.launch import train as LT
+    from repro_torch.models import model as M
+    from repro_torch.optim.optimizers import (AdamWConfig, adamw_update,
+                                              tree_leaves)
+    from repro_torch.train import steps as TS
+    out, zero = {}, (0,) * 7
+
+    # (a) the smoke configs: one step, card against CPU
+    smoke = {}
+    for arch in ARCH_IDS:
+        cfg = dataclasses.replace(get_smoke_config(arch),
+                                  compute_dtype="float32")
+        state = TS.init_train_state(cfg, torch.Generator().manual_seed(0),
+                                    device="cpu")
+        batch = _smoke_batch(torch, cfg, 2, 32, seed=3)
+        step = TS.make_train_step(cfg)
+        _, cpu = step(state, batch)
+        reset_counts()
+        _, card = step(_to(state, "cuda"), _to(batch, "cuda"))
+        torch.cuda.synchronize()
+        counts = read_counts()
+        rel = {k: abs(float(card[k]) - float(cpu[k]))
+               / max(abs(float(cpu[k])), 1e-30)
+               for k in ("loss", "grad_norm")}
+        smoke[arch] = {"loss": float(card["loss"]),
+                       "cpu_loss": float(cpu["loss"]), "rel": rel,
+                       "launches": list(counts)}
+        if max(rel.values()) > TRAIN_RTOL or counts != zero:
+            raise AssertionError(f"[10 smoke {arch}] card vs CPU rel "
+                                 f"{rel} (bar {TRAIN_RTOL}), launches "
+                                 f"{counts}")
+    out["smoke_card_vs_cpu"] = smoke
+    worst = max(max(r["rel"].values()) for r in smoke.values())
+    print(f"[10 train smoke] {len(smoke)} smoke configs, one float32 train "
+          f"step (batch 2 x 32) card vs CPU: loss and grad norm within "
+          f"{worst:.3g} relative (bar {TRAIN_RTOL}); launches K1-K5 0")
+
+    # (b) mamba2-1.3b at full widths, 4 layers: the gradient card vs CPU
+    cfg = dataclasses.replace(get_config("mamba2-1.3b"),
+                              n_layers=FULL_TRAIN_LAYERS,
+                              compute_dtype="float32")
+    params = M.init_params(cfg, torch.Generator().manual_seed(0),
+                           device="cpu")
+    batch = _smoke_batch(torch, cfg, 1, FULL_TRAIN_SEQ, seed=4)
+    t0 = time.perf_counter()
+    (cpu_loss, _), cpu_g = TS.value_and_grad(params, cfg, batch)
+    cpu_s = time.perf_counter() - t0
+    reset_counts()
+    (card_loss, _), card_g = TS.value_and_grad(_to(params, "cuda"), cfg,
+                                               _to(batch, "cuda"))
+    torch.cuda.synchronize()
+    counts = read_counts()
+    loss_rel = abs(float(card_loss) - float(cpu_loss)) / abs(float(cpu_loss))
+    grad_rel = max(float((a.cpu() - b).norm() / b.norm())
+                   for a, b in zip(tree_leaves(card_g), tree_leaves(cpu_g)))
+    out["full_width_grad"] = {
+        "n_layers": cfg.n_layers, "seq": FULL_TRAIN_SEQ,
+        "params": sum(t.numel() for t in tree_leaves(params)),
+        "loss": float(card_loss), "loss_rel": loss_rel,
+        "max_leaf_rel_l2": grad_rel, "cpu_s": cpu_s,
+        "launches": list(counts)}
+    print(f"[10 train full width] mamba2-1.3b, {cfg.n_layers} layers at "
+          f"full widths, one float32 gradient (batch 1 x {FULL_TRAIN_SEQ}) "
+          f"card vs CPU: loss {float(card_loss):.6f} rel {loss_rel:.3g} "
+          f"(bar {TRAIN_RTOL}), worst leaf rel L2 {grad_rel:.3g} (bar "
+          f"{TRAIN_GRAD_REL_L2}); launches K1-K5 0; CPU {cpu_s:.2f} s")
+    if loss_rel > TRAIN_RTOL or grad_rel > TRAIN_GRAD_REL_L2 \
+            or counts != zero:
+        raise AssertionError(f"full-width gradient: loss rel {loss_rel}, "
+                             f"leaf rel L2 {grad_rel}, launches {counts}")
+    del params, cpu_g, card_g
+
+    # (c) the whole-config HFL run
+    args = LT.parse_args(TRAIN_ARGV)
+    unequal = []
+
+    def check(i, state, rec):
+        if rec["sync_s"] is None:
+            return
+        for leaf in tree_leaves((state.params, state.opt["m"],
+                                 state.opt["v"])):
+            if not torch.equal(leaf[0], leaf[1]):
+                unequal.append(i)
+                return
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    cfg, state, hist = LT.train(args, on_step=check)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    losses = [float(np.mean(r["loss"])) for r in hist]
+    warm = [r["step_s"] for r in hist[1:]]
+    step_s = statistics.median(warm)
+    syncs = [r["sync_s"] for r in hist if r["sync_s"] is not None]
+    nc, tokens = args.clusters, args.clusters * args.batch * args.seq
+    n_params = sum(t[0].numel() for t in tree_leaves(state.params))
+    rec = {"argv": TRAIN_ARGV, "params": n_params, "losses": losses,
+           "step_s": [r["step_s"] for r in hist],
+           "cluster_step_s": step_s / nc, "tokens_per_s": tokens / step_s,
+           "sync_s": syncs, "peak_gib": peak, "run_s": run_s,
+           "launches": list(counts), "unequal_after_sync": unequal}
+    print(f"[10 train hfl] mamba2-1.3b ({n_params / 1e9:.3f} B params), "
+          f"{nc} clusters x {args.batch} x {args.seq} tokens, bf16, remat "
+          f"{cfg.remat}, 10-bit sync every 4: losses "
+          f"{[round(x, 4) for x in losses]}; warm step (median of steps "
+          f"1-7) {step_s:.4f} s = {step_s / nc:.4f} s a cluster-step, "
+          f"{tokens / step_s:.1f} tokens/s; syncs "
+          f"{[round(x, 4) for x in syncs]} s; peak {peak:.2f} GiB; run "
+          f"{run_s:.1f} s; clusters bitwise equal after every sync: "
+          f"{not unequal}; launches K1-K5 {list(counts)}")
+    if not all(np.isfinite(losses)) or \
+            np.mean(losses[-2:]) >= losses[0] or unequal or counts != zero \
+            or len(syncs) != args.steps // 4:
+        raise AssertionError(f"hfl run: losses {losses}, unequal after "
+                             f"sync at steps {unequal}, launches {counts}, "
+                             f"syncs {syncs}")
+
+    # where a step's time goes: one more tier-1 step under torch.profiler,
+    # and one cluster's gradient and AdamW update apart on the host clock
+    local = H.make_hfl_local_step(cfg, AdamWConfig(lr=args.lr,
+                                                   warmup_steps=2))
+    bs = [next(synthetic_lm_batches(cfg.vocab, args.batch, args.seq, 1,
+                                    seed=90 + c, device="cuda"))
+          for c in range(nc)]
+    prof = profile_window(torch, lambda: local(state, bs),
+                          TRAIN_PROFILE_GROUPS)
+    one = H.cluster_slice(state, 0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    (_, _), grads = TS.value_and_grad(one.params, cfg, bs[0])
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    with torch.no_grad():
+        adamw_update(AdamWConfig(), one.params, grads, one.opt)
+    torch.cuda.synchronize()
+    rec.update(profile=prof, grad_s=t1 - t0,
+               adamw_s=time.perf_counter() - t1)
+    idle = ("not measured: no device events" if prof["idle"] is None
+            else f"{100 * prof['idle']:.1f}%")
+    print(f"[10 train profile] one tier-1 step ({nc} clusters) under "
+          f"torch.profiler: wall {prof['wall_s']:.4f} s, device busy "
+          f"{prof['busy_s']:.4f} s (idle {idle}); device time by group: "
+          + ", ".join(f"{k} {v:.4f} s" for k, v in sorted(
+              prof["groups"].items(), key=lambda kv: -kv[1]))
+          + f"; one cluster apart: gradient {rec['grad_s']:.4f} s, AdamW "
+          f"update {rec['adamw_s']:.4f} s; top ops by device time: "
+          + ", ".join(f"{o['name']} {o['s']:.4f} s"
+                      for o in prof["top_ops"][:6]))
+    out["hfl"] = rec
+    del state, grads, one, local
+    torch.cuda.empty_cache()
+
+    # (d) the reduced HFL state: saved on the card, restored on the CPU
+    cfg = dataclasses.replace(get_smoke_config("mamba2-1.3b"),
+                              compute_dtype="float32")
+    state = H.init_hfl_state(cfg, 2, torch.Generator("cuda").manual_seed(0),
+                             device="cuda")
+    state, _ = H.make_hfl_local_step(cfg)(state, [
+        _to(_smoke_batch(torch, cfg, 2, 32, seed=s), "cuda")
+        for s in (5, 6)])
+    with tempfile.TemporaryDirectory() as d:
+        path = save_pytree(Path(d) / "hfl", state, extra_meta={"steps": 1})
+        template = H.abstract_hfl_state(cfg, 2)
+        back = restore_pytree(path, template, device="cpu")
+        equal = all(torch.equal(a.cpu(), b) for a, b in
+                    zip(tree_leaves(state), tree_leaves(back)))
+        data = dict(np.load(path, allow_pickle=False))
+        key = "params/tok_embed"
+        raw = data[key].copy()
+        raw.reshape(-1).view(np.uint8)[7] ^= 0x10      # one bit on disk
+        data[key] = raw
+        np.savez(path, **data)
+        try:
+            restore_pytree(path, template, device="cpu")
+            caught = False
+        except ChecksumError:
+            caught = True
+        leaves = len(tree_leaves(state))
+    out["checkpoint"] = {"leaves": leaves, "equal": equal,
+                         "flip_caught": caught}
+    print(f"[10 train checkpoint] reduced mamba2 HFL state ({leaves} "
+          f"leaves, 2 clusters) saved from the card, restored on the CPU: "
+          f"bitwise equal {equal}; a flipped bit raises ChecksumError: "
+          f"{caught}")
+    if not (equal and caught):
+        raise AssertionError(f"checkpoint round trip: equal {equal}, flip "
+                             f"caught {caught}")
+    return out
 
 
 def records_equal(a, b, accuracy=True):
@@ -1760,12 +2029,19 @@ def main() -> int:
     t0 = time.perf_counter()
     report["serve"] = serve_phase(torch, reset_counts, read_counts)
     report["serve_s"] = time.perf_counter() - t0
+
+    # -- phase 10: LM training and the hierarchical trainer --------------
+    t0 = time.perf_counter()
+    report["train"] = train_phase(torch, reset_counts, read_counts)
+    report["train_s"] = time.perf_counter() - t0
+    train_launches = report["train"]["hfl"]["launches"]
     k4_main = report["serve"]["mamba2-1.3b"]["launches"][3]
     k4_tc_main = report["serve"]["mamba2-1.3b"]["launches"][6]
     k5_main = report["serve"]["mixtral-8x22b"]["launches"][5]
 
     kernels = [{
         "name": "quant_agg_stacked",
+        "train_launches": train_launches[0],
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/quant_agg.cu",
         "replaces": "src/repro/kernels/quant_agg.py:100",
@@ -1787,6 +2063,7 @@ def main() -> int:
                  "table launch (per_leaf: 8 tables of one)",
     }, {
         "name": "trimmed_agg_stacked",
+        "train_launches": train_launches[1],
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/trimmed_agg.cu",
         "replaces": "src/repro/kernels/trimmed_agg.py:79",
@@ -1812,6 +2089,7 @@ def main() -> int:
                  "leaf of n=2^24 at K=10 and 32, pads masked)",
     }, {
         "name": "quant_agg",
+        "train_launches": train_launches[2],
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/quant_agg.cu",
         "replaces": "src/repro/kernels/quant_agg.py:53",
@@ -1833,6 +2111,7 @@ def main() -> int:
                  "launch per model (library: 40 calls)",
     }, {
         "name": "ssd_chunk",
+        "train_launches": train_launches[3],
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/ssd_scan_tc.cu",
         "cuda_core_source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
@@ -1859,6 +2138,7 @@ def main() -> int:
                  "CUDA-core instance)",
     }, {
         "name": "swa_attention",
+        "train_launches": train_launches[4],
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/swa_attention_tc.cu",
         "cuda_core_source": "src/repro_torch/kernels/csrc/swa_attention.cu",

@@ -1,8 +1,9 @@
 """PyTorch/CUDA port of the satellite-FL reproduction (``src/repro``).
 
 Same subpackage layout as the JAX package (``orbit/``, ``core/``,
-``sim/``, ``data/``, ``models/``, ``kernels/``), so each module here has
-one reference module there. The port imports ``torch`` and ``numpy`` only.
+``sim/``, ``data/``, ``models/``, ``kernels/``, ``optim/``, ``train/``,
+``checkpoint/``, ``launch/``), so each module here has one reference
+module there. The port imports ``torch`` and ``numpy`` only.
 Entry points take ``device=`` and default to ``"cuda"``; asking for the
 card where there is none raises instead of running on the CPU.
 """

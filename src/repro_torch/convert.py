@@ -16,6 +16,7 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.data.synthetic import FedDataset
+from repro_torch.train.steps import TrainState
 
 
 def params_from_numpy(tree, device="cuda") -> Dict[str, torch.Tensor]:
@@ -36,6 +37,16 @@ def lm_params_from_numpy(tree, device="cuda"):
     if isinstance(tree, (tuple, list)):
         return tuple(lm_params_from_numpy(v, device) for v in tree)
     return torch.tensor(np.asarray(tree), device=device)
+
+
+def train_state_from_numpy(params, opt, device="cuda") -> TrainState:
+    """The reference's ``TrainState`` (its ``params`` tree and its AdamW
+    ``opt`` dict ``{"m", "v", "step"}``, as numpy arrays) -> the port's
+    ``TrainState`` on ``device`` (default the card), same keys, shapes and
+    dtypes (``opt/step`` int32). A hierarchical state, whose leaves carry
+    the leading clusters axis, carries across the same way."""
+    return TrainState(params=lm_params_from_numpy(params, device),
+                      opt=lm_params_from_numpy(opt, device))
 
 
 def dataset_from_numpy(x, y, x_test, y_test, n_classes: int, name: str,

@@ -32,6 +32,8 @@ from typing import Iterable, Tuple
 import numpy as np
 import torch
 
+from repro_torch.optim.optimizers import tree_leaves
+
 
 def _device(params) -> torch.device:
     return next(iter(params.values())).device
@@ -357,4 +359,6 @@ def robust_apply_buffered_deltas(global_params, stacked_new, stacked_base,
 
 
 def pytree_bytes(params, bits=32):
-    return sum(p.numel() for p in params.values()) * bits / 8
+    """Bytes of every tensor of ``params`` (a flat dict or a nested tree,
+    such as the LM params) at ``bits`` a value."""
+    return sum(p.numel() for p in tree_leaves(params)) * bits / 8

@@ -16,6 +16,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core.aggregation import pytree_bytes
+from repro_torch.optim.optimizers import tree_leaves
 
 
 def _qmax(bits: int) -> float:
@@ -86,6 +87,20 @@ def transmit_bytes(params, quant_bits: int = 0) -> float:
 
 
 def quantized_bytes(params, bits: int) -> float:
-    n = sum(p.numel() for p in params.values())
-    n_tensors = len(params)
+    leaves = tree_leaves(params)
+    n = sum(p.numel() for p in leaves)
+    n_tensors = len(leaves)
     return n * bits / 8 + n_tensors * 4          # + one f32 scale per tensor
+
+
+def roundtrip_error(params, bits: int) -> float:
+    """Relative L2 error of a ``bits``-bit round trip over all tensors of
+    ``params`` (a flat dict or a nested tree)."""
+    leaves = tree_leaves(params)
+    deq = []
+    for x in leaves:
+        q, s = _q_leaf(x, bits)
+        deq.append(q.to(torch.float32) * s)
+    num = sum(float(((a - b) ** 2).sum()) for a, b in zip(leaves, deq))
+    den = sum(float((a ** 2).sum()) for a in leaves)
+    return (num / max(den, 1e-12)) ** 0.5

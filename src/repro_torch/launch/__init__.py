@@ -1,2 +1,3 @@
 """Entry points of the LM stack: ``serve`` (batched prefill + cache
-decode) and ``serve_batched`` (the serving example)."""
+decode), ``serve_batched`` (the serving example) and ``train`` (plain and
+hierarchical AutoFLSat training)."""

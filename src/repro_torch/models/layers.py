@@ -34,11 +34,18 @@ def cx(x, cfg):
     return x.to(cdtype(cfg))
 
 
+def draw_device(gen, device):
+    """Where a draw for ``device`` runs: on the generator's device, so
+    the card and the CPU see the same values; on ``meta`` for a meta
+    ``device``, which holds shapes only."""
+    return device if torch.device(device).type == "meta" else gen.device
+
+
 def normal(gen, shape, scale, device):
     """float32 N(0, 1) * scale of ``shape``, drawn on the generator's device
     and moved to ``device``."""
-    return (torch.randn(tuple(shape), generator=gen, device=gen.device)
-            * scale).to(device)
+    return (torch.randn(tuple(shape), generator=gen,
+                        device=draw_device(gen, device)) * scale).to(device)
 
 
 def ones(shape, device):

@@ -7,8 +7,9 @@ lcm(layer_period, moe.every): the layers at one offset share structure and
 their params are stacked (n_super, ...), as the reference stacks them, so
 weights carried over from the JAX package map key for key. The forward
 pass loops over superblocks in Python where the reference runs
-``lax.scan``; serving runs under ``torch.inference_mode()`` and needs no
-rematerialisation.
+``lax.scan``. Under autograd each superblock is rematerialised as
+``cfg.remat`` says (the reference's ``_remat``); serving runs under
+``torch.inference_mode()``, where there is nothing to rematerialise.
 
 Params are dicts of float32 tensors; compute runs in ``cfg.compute_dtype``.
 Caches are tuples (one entry per offset) of dicts of tensors stacked
@@ -17,6 +18,7 @@ Caches are tuples (one entry per offset) of dicts of tensors stacked
 from __future__ import annotations
 
 import math
+from functools import partial
 
 import torch
 
@@ -72,10 +74,16 @@ def _offset_kind(cfg, o):
     return mixer, ffn
 
 
-def _index(tree, i):
-    """The i-th slice of every tensor of a nested dict."""
-    return {k: _index(v, i) if isinstance(v, dict) else v[i]
-            for k, v in tree.items()}
+def _unbind(tree):
+    """A nested dict of stacked (n, ...) tensors -> the list of its n
+    slices, one nested dict each. Each leaf is taken apart once
+    (``torch.unbind``, whose backward is one ``stack``): indexing it slice
+    by slice would, under autograd, allocate a zero gradient of the whole
+    stacked leaf for every slice."""
+    parts = {k: _unbind(v) if isinstance(v, dict) else torch.unbind(v, 0)
+             for k, v in tree.items()}
+    n = len(next(iter(parts.values())))
+    return [{k: v[i] for k, v in parts.items()} for i in range(n)]
 
 
 def _stack(trees):
@@ -228,28 +236,71 @@ def init_params(cfg, generator, device="cuda"):
 # ---------------------------------------------------------------------------
 
 
-def apply_stack_seq(params, cfg, h, positions, enc_out=None):
+#: ops whose outputs the "dots" policy saves: matrix products without batch
+#: dimensions (``jax.checkpoint_policies.checkpoint_dots_with_no_batch_dims``)
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    from torch.utils.checkpoint import CheckpointPolicy
+    return (CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _remat(fn, cfg):
+    """``fn`` rematerialised in the backward pass as ``cfg.remat`` says:
+    "full" saves only its inputs, "dots" also the outputs of its matrix
+    products, "none" everything. Rematerialisation never changes a value;
+    without autograd there is nothing to save and ``fn`` runs as is."""
+    if cfg.remat == "none" or not torch.is_grad_enabled():
+        return fn
+    from torch.utils.checkpoint import (checkpoint,
+                                        create_selective_checkpoint_contexts)
+    kw = {"use_reentrant": False}
+    if cfg.remat == "dots":
+        kw["context_fn"] = partial(create_selective_checkpoint_contexts,
+                                   _dots_policy)
+    return lambda *args: checkpoint(fn, *args, **kw)
+
+
+def apply_stack_seq(params, cfg, h, positions, enc_out=None,
+                    with_cache=True):
     """Loop over superblocks. Returns (h, aux_total, cache tuple-of-dicts
-    stacked (n_super, ...))."""
+    stacked (n_super, ...), or None without ``with_cache``)."""
     P = effective_period(cfg)
+
+    def body(hh, aux, layer_ps):
+        entries = []
+        for o in range(P):
+            hh, a, ce = apply_sublayer_seq(layer_ps[o], hh, cfg, positions,
+                                           o, enc_out=enc_out)
+            aux = aux + a
+            entries.append(ce)
+        return hh, aux, tuple(entries)
+
+    body = _remat(body, cfg)
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
+    layers = [_unbind(lp) for lp in params["layers"]]
     entries = [[] for _ in range(P)]
     for s in range(n_superblocks(cfg)):
-        for o in range(P):
-            h, a, ce = apply_sublayer_seq(_index(params["layers"][o], s), h,
-                                          cfg, positions, o, enc_out=enc_out)
-            aux = aux + a
-            entries[o].append(ce)
+        h, aux, ces = body(h, aux, tuple(lp[s] for lp in layers))
+        if with_cache:
+            for o in range(P):
+                entries[o].append(ces[o])
+    if not with_cache:
+        return h, aux, None
     return h, aux, tuple(_stack(e) for e in entries)
 
 
 def apply_stack_decode(params, cfg, h, cache, pos):
     P = effective_period(cfg)
+    layers = [_unbind(lp) for lp in params["layers"]]
+    caches = [_unbind(c) for c in cache]
     entries = [[] for _ in range(P)]
     for s in range(n_superblocks(cfg)):
         for o in range(P):
-            h, nce = apply_sublayer_decode(_index(params["layers"][o], s), h,
-                                           cfg, _index(cache[o], s), pos, o)
+            h, nce = apply_sublayer_decode(layers[o][s], h, cfg,
+                                           caches[o][s], pos, o)
             entries[o].append(nce)
     return h, tuple(_stack(e) for e in entries)
 
@@ -259,15 +310,18 @@ def apply_encoder(params, cfg, frames):
     h = frames.to(cdtype(cfg))
     h = h + sinusoid_positions(frames.shape[1], cfg.d_model,
                                frames.device).to(h.dtype)
-    layers = params["encoder"]["layers"]
-    for i in range(cfg.encoder.n_layers):
-        lp = _index(layers, i)
-        hn = apply_norm(lp["norm1"], h, cfg)
+
+    def body(hh, lp):
+        hn = apply_norm(lp["norm1"], hh, cfg)
         out, _ = apply_attention_seq(lp["attn"], hn, cfg, positions=None,
                                      causal=False)
-        h = h + out
-        hn = apply_norm(lp["norm2"], h, cfg)
-        h = h + apply_mlp(lp["mlp"], hn, cfg)
+        hh = hh + out
+        hn = apply_norm(lp["norm2"], hh, cfg)
+        return hh + apply_mlp(lp["mlp"], hn, cfg)
+
+    body = _remat(body, cfg)
+    for lp in _unbind(params["encoder"]["layers"]):
+        h = body(h, lp)
     return apply_norm(params["encoder"]["final_norm"], h, cfg)
 
 
@@ -320,7 +374,8 @@ def apply_train(params, cfg, batch):
     enc_out = None
     if cfg.encoder is not None:
         enc_out = apply_encoder(params, cfg, batch["frames"])
-    h, aux, _ = apply_stack_seq(params, cfg, h, positions, enc_out)
+    h, aux, _ = apply_stack_seq(params, cfg, h, positions, enc_out,
+                                with_cache=False)
     return logits_from_h(params, cfg, h), aux
 
 

@@ -15,7 +15,8 @@ import math
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.layers import cx, gated_rmsnorm, normal, ones, zeros
+from repro_torch.models.layers import (cx, draw_device, gated_rmsnorm,
+                                       normal, ones, zeros)
 
 # ---------------------------------------------------------------------------
 # init
@@ -30,7 +31,8 @@ def init_ssm(gen, cfg, device, lead=()):
     gn = s.n_groups * s.d_state
     conv_ch = d_in + 2 * gn
     # dt bias init so softplus(dt_bias) spans [dt_min, dt_max]
-    u = torch.rand((*lead, h), generator=gen, device=gen.device).to(device)
+    u = torch.rand((*lead, h), generator=gen,
+                   device=draw_device(gen, device)).to(device)
     dt = torch.exp(u * (math.log(s.dt_max) - math.log(s.dt_min))
                    + math.log(s.dt_min))
     dt_bias = dt + torch.log(-torch.expm1(-dt))          # inverse softplus

@@ -34,7 +34,12 @@ def test_module_list_covers_the_slice():
               "repro_torch.launch.serve", "repro_torch.launch.serve_batched",
               "repro_torch.sim.faults", "repro_torch.sim.energy",
               "repro_torch.orbit.eclipse", "repro_torch.energy_aware",
-              "repro_torch.constellation_train"):
+              "repro_torch.constellation_train", "repro_torch.data.tokens",
+              "repro_torch.optim", "repro_torch.optim.optimizers",
+              "repro_torch.train", "repro_torch.train.steps",
+              "repro_torch.checkpoint", "repro_torch.checkpoint.checkpoint",
+              "repro_torch.core.hierarchy", "repro_torch.launch.train",
+              "repro_torch.hierarchical_llm_train"):
         assert m in mods
 
 
