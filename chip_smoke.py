@@ -78,6 +78,15 @@ Phases, each printing its own line; any failure exits non-zero:
                   every sync, no K1-K5 launch; a torch.profiler breakdown
                   of one step; (d) a reduced HFL state saved on the card,
                   restored on the CPU bitwise, a flipped bit caught;
+ 11. dry run    — (a) the dry run (``repro_torch.launch.dryrun``, a fake
+                  process group) of (c)'s per-cluster step on a one-rank
+                  mesh, against the same step on the card under the same
+                  op-trace analyzer: matmul FLOPs equal, the predicted
+                  peak within DRY_PEAK_BAR of ``max_memory_allocated``,
+                  the step's seconds beside the roofline times; (b) a
+                  reduced HFL state restored onto a one-rank ``cuda``
+                  DeviceMesh with the HFL placements, bitwise; no K1-K5
+                  launch;
 and then the ``kernels`` JSON line, the card's name and power limit, and
 the result line. Each path runs with every launch count set to 0 just
 before it and read just after. Details go to
@@ -88,6 +97,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import os
 import re
 import statistics
 import subprocess
@@ -99,10 +109,15 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
-HBM_BYTES_PER_S = 3.35e12       # H100 SXM HBM3 (NVIDIA data sheet)
-FP32_FLOPS_PER_S = 67e12        # H100 SXM float32, no tensor cores
-BF16_FLOPS_PER_S = 989e12       # H100 SXM bfloat16 tensor cores, dense
-TF32_FLOPS_PER_S = 495e12       # H100 SXM TF32 tensor cores, dense
+# the H100 SXM's data-sheet rates, one source for the port and this script
+from repro_torch.launch.mesh import HBM_BW as HBM_BYTES_PER_S  # noqa: E402
+from repro_torch.launch.mesh import \
+    PEAK_FLOPS_BF16 as BF16_FLOPS_PER_S  # noqa: E402
+from repro_torch.launch.mesh import \
+    PEAK_FLOPS_FP32 as FP32_FLOPS_PER_S  # noqa: E402
+from repro_torch.launch.mesh import \
+    PEAK_FLOPS_TF32 as TF32_FLOPS_PER_S  # noqa: E402
+
 # Full-width serving shapes of phase 9: mamba2-1.3b prefill of 4 x 1024
 # tokens (K4: b, nc, c, h, p, g, n) and mixtral-8x22b prefill of 4 x 8192
 # tokens (K5: B, L, H, KH, hd, window).
@@ -133,6 +148,27 @@ CNN_LEAF_SIZES = (144, 16, 4608, 32, 200_704, 128, 7936, 62)
 # aggregation is one K1 table over the 4 cluster models (10 at
 # constellation_train --clusters 10)
 EUROSAT_LEAF_SIZES = (432, 16, 4608, 32, 1_048_576, 128, 1280, 10)
+
+
+def launch_counters():
+    """(reset_counts, read_counts) over the kernels' launch counters: K1,
+    K2, K3, K4 (both instances), K5 (both instances), K5's and K4's
+    tensor-core instances."""
+    from repro_torch.kernels import quant_agg as qa
+    from repro_torch.kernels import ssd_scan as K4
+    from repro_torch.kernels import swa_attention as K5
+    from repro_torch.kernels import trimmed_agg as ta
+    counters = ((qa, "launches"), (ta, "launches"), (qa, "single_launches"),
+                (K4, "launches"), (K5, "launches"), (K5, "tc_launches"),
+                (K4, "tc_launches"))
+
+    def reset_counts():
+        for mod, attr in counters:
+            setattr(mod, attr, 0)
+
+    def read_counts():
+        return tuple(getattr(mod, attr) for mod, attr in counters)
+    return reset_counts, read_counts
 
 
 def gpu_line() -> str:
@@ -1370,6 +1406,193 @@ def train_phase(torch, reset_counts, read_counts):
     return out
 
 
+# Phase 11: the dry run of phase 10's per-cluster step on a one-rank mesh
+# against the same step on the card (peak bar: the predicted peak within
+# this share of max_memory_allocated), and the sharded restore. The
+# production dry runs (256 and 512 fake ranks) are not run here: torch
+# 2.11's DTensor cannot shard the port's steps (no strided shards, no
+# [Shard(0), Shard(0)] rule for indexing, no rule for flip);
+# tools/dryrun_probe.py shows which dry runs an installed torch traces.
+DRY_ARCH, DRY_SHAPE = "mamba2-1.3b", ("chip_train", 1024, 4, "train")
+DRY_PEAK_BAR = 0.10
+DRY_TIMEOUT_S = 300
+
+DRY_ONE_RANK = """
+import dataclasses, json, sys
+from repro_torch.configs import InputShape, get_config
+from repro_torch.launch import dryrun as D
+cfg = dataclasses.replace(get_config(%(arch)r), compute_dtype="bfloat16",
+                          remat="full")
+rec = D.run_one(%(arch)r, InputShape(*%(shape)r), "local", cfg=cfg,
+                mesh_shape=(1, 1))
+print(json.dumps(rec))
+"""
+
+
+def _spawn(argv):
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    return subprocess.Popen(argv, cwd=ROOT, env=env, text=True,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE)
+
+
+def _collect(proc, what):
+    try:
+        out, err = proc.communicate(timeout=DRY_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.communicate()
+        raise AssertionError(f"{what}: no result in {DRY_TIMEOUT_S} s")
+    if proc.returncode != 0:
+        raise AssertionError(f"{what}: exit {proc.returncode}: {err[-3000:]}")
+    return out
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def dryrun_phase(torch, reset_counts, read_counts):
+    """Phase 11: (a) the dry run (``repro_torch.launch.dryrun``) of
+    whole-config mamba2-1.3b's train step on a one-rank mesh (in a process
+    of its own: a process group is per process; started first), against
+    the same step on the card under the same analyzer: matmul FLOPs equal,
+    the predicted peak within DRY_PEAK_BAR of ``max_memory_allocated``;
+    the step's seconds (a second run, without the analyzer) beside the
+    roofline times; (b) a reduced HFL state saved on the card and restored
+    onto a one-rank ``cuda`` DeviceMesh with the HFL placements, every
+    local shard bitwise equal to the CPU restore."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from repro_torch.checkpoint import restore_pytree, save_pytree
+    from repro_torch.configs import InputShape, get_config, get_smoke_config
+    from repro_torch.core import hierarchy as H
+    from repro_torch.launch import specs as LS
+    from repro_torch.launch.mesh import (HBM_BW, PEAK_FLOPS_BF16,
+                                         make_local_mesh)
+    from repro_torch.launch.op_analysis import OpAnalyzer
+    from repro_torch.optim.optimizers import tree_leaves
+    from repro_torch.sharding import named
+    from repro_torch.train import steps as ST
+    out, zero = {}, (0,) * 7
+    t0 = time.perf_counter()
+    one_rank = _spawn([sys.executable, "-c", DRY_ONE_RANK % {
+        "arch": DRY_ARCH, "shape": DRY_SHAPE}])
+
+    # (a) the same step on the card, under the analyzer, then timed
+    cfg = dataclasses.replace(get_config(DRY_ARCH),
+                              compute_dtype="bfloat16", remat="full")
+    shape = InputShape(*DRY_SHAPE)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    reset_counts()
+    state = ST.init_train_state(cfg, torch.Generator("cuda").manual_seed(0),
+                                device="cuda")
+    batch = LS.concrete_inputs(cfg, shape, torch.Generator().manual_seed(1),
+                               device="cuda")["batch"]
+    step = ST.make_train_step(cfg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    an = OpAnalyzer("cuda")
+    an.track(tree_leaves((state, batch)))
+    with an:
+        new, metrics = step(state, batch)
+    torch.cuda.synchronize()
+    card_peak = torch.cuda.max_memory_allocated() - base
+    loss = float(metrics["loss"])
+    del new, metrics
+    card = an.stats()
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    new, _ = step(state, batch)
+    torch.cuda.synchronize()
+    step_s = time.perf_counter() - t1
+    del new, state, batch
+    torch.cuda.empty_cache()
+
+    # (b) the sharded restore onto a one-rank cuda mesh
+    rcfg = dataclasses.replace(get_smoke_config("mamba2-1.3b"),
+                               compute_dtype="float32")
+    hstate = H.init_hfl_state(rcfg, 2,
+                              torch.Generator("cuda").manual_seed(0),
+                              device="cuda")
+    dist.init_process_group("nccl", init_method="tcp://localhost:"
+                            f"{_free_port()}", rank=0, world_size=1)
+    try:
+        mesh = make_local_mesh(1, 1, pod=1, device_type="cuda")
+        with tempfile.TemporaryDirectory() as d:
+            path = save_pytree(Path(d) / "hfl", hstate)
+            template = H.abstract_hfl_state(rcfg, 2)
+            sharded = restore_pytree(
+                path, template, device="cuda", mesh=mesh,
+                placements=named(mesh, H.hfl_state_specs(rcfg, mesh)))
+            plain = restore_pytree(path, template, device="cpu")
+        pairs = list(zip(tree_leaves(sharded), tree_leaves(plain)))
+        restore_equal = all(torch.equal(a.to_local().cpu(), b)
+                            for a, b in pairs)
+        placements = sorted({str(tuple(a.placements)) for a, _ in pairs})
+    finally:
+        dist.destroy_process_group()
+    counts = read_counts()
+    del hstate, sharded, plain, pairs
+
+    dry = json.loads(_collect(one_rank, "one-rank dry run").splitlines()[-1])
+    if dry["status"] != "ok":
+        raise AssertionError(f"[11 dry run] one-rank dry run: {dry}")
+    phase_s = time.perf_counter() - t0
+
+    pred = dry["mem_peak_bytes_per_dev"]
+    peak_err = abs(pred - card_peak) / card_peak
+    flops_t = card.flops / PEAK_FLOPS_BF16
+    bytes_t = card.bytes / HBM_BW
+    out["one_rank"] = {
+        "arch": DRY_ARCH, "shape": DRY_SHAPE, "dry": dry,
+        "card": {"matmul_flops": card.matmul_flops, "flops": card.flops,
+                 "bytes": card.bytes, "n_ops": card.n_ops,
+                 "analyzer_peak_bytes": card.peak_bytes,
+                 "max_memory_allocated_bytes": card_peak,
+                 "step_s": step_s, "loss": loss,
+                 "roofline_flops_s": flops_t, "roofline_bytes_s": bytes_t},
+        "peak_rel_err": peak_err}
+    print(f"[11 dry run one rank] {DRY_ARCH} train step, "
+          f"{shape.global_batch} x {shape.seq_len} tokens, bf16, remat "
+          f"full, float32 AdamW: dry run (1 x 1 fake mesh, "
+          f"{dry['trace_s']} s to trace) matmul FLOPs "
+          f"{dry['op_matmul_flops_per_dev']:.6e} vs the card's "
+          f"{card.matmul_flops:.6e} (equal: "
+          f"{dry['op_matmul_flops_per_dev'] == card.matmul_flops}); "
+          f"predicted peak {pred / 2 ** 30:.3f} GiB vs max_memory_allocated "
+          f"{card_peak / 2 ** 30:.3f} GiB (rel {peak_err:.4f}, bar "
+          f"{DRY_PEAK_BAR}; the analyzer on the card "
+          f"{card.peak_bytes / 2 ** 30:.3f} GiB); step {step_s:.4f} s vs "
+          f"roofline {flops_t:.4f} s (FLOPs {card.flops:.4e} at "
+          f"{PEAK_FLOPS_BF16:.3g}/s) and {bytes_t:.4f} s (bytes "
+          f"{card.bytes:.4e} at {HBM_BW:.3g} B/s); loss {loss:.4f}")
+    out["restore"] = {"leaves": len(tree_leaves(template)),
+                      "equal": restore_equal, "placements": placements}
+    print(f"[11 dry run restore] reduced mamba2 HFL state "
+          f"({len(tree_leaves(template))} leaves, 2 clusters) saved from "
+          f"the card, restored onto a one-rank cuda DeviceMesh (pod, data, "
+          f"model) with the HFL placements {placements}: every local shard "
+          f"bitwise equal to the CPU restore: {restore_equal}; launches "
+          f"K1-K5 {list(counts)}; phase {phase_s:.1f} s")
+    out["launches"] = list(counts)
+    out["phase_s"] = phase_s
+    if dry["op_matmul_flops_per_dev"] != card.matmul_flops \
+            or peak_err > DRY_PEAK_BAR or not restore_equal \
+            or counts != zero:
+        raise AssertionError(
+            f"phase 11: matmul FLOPs {dry['op_matmul_flops_per_dev']} vs "
+            f"{card.matmul_flops}, peak rel {peak_err}, restore equal "
+            f"{restore_equal}, launches {counts}")
+    return out
+
+
 def records_equal(a, b, accuracy=True):
     """Every non-accuracy RoundRecord field equal; accuracy within
     ACC_TOL_EARLY for the first EARLY_ROUNDS rounds, ACC_TOL_LATE after
@@ -1624,18 +1847,7 @@ def main() -> int:
 
     t_start = time.perf_counter()
     report = {}
-    # K1, K2, K3, K4 (both instances), K5 (both instances), K5's and K4's
-    # tensor-core instances
-    counters = ((qa, "launches"), (ta, "launches"), (qa, "single_launches"),
-                (K4, "launches"), (K5, "launches"), (K5, "tc_launches"),
-                (K4, "tc_launches"))
-
-    def reset_counts():
-        for mod, attr in counters:
-            setattr(mod, attr, 0)
-
-    def read_counts():
-        return tuple(getattr(mod, attr) for mod, attr in counters)
+    reset_counts, read_counts = launch_counters()
     card = gpu_line()
     print(f"[1 device] {card}; torch {torch.__version__} cuda "
           f"{torch.version.cuda}; count {torch.cuda.device_count()}")
@@ -2034,6 +2246,11 @@ def main() -> int:
     t0 = time.perf_counter()
     report["train"] = train_phase(torch, reset_counts, read_counts)
     report["train_s"] = time.perf_counter() - t0
+    # -- phase 11: the dry run against the card, the sharded restore ---
+    t0 = time.perf_counter()
+    report["dryrun"] = dryrun_phase(torch, reset_counts, read_counts)
+    report["dryrun_s"] = time.perf_counter() - t0
+    dry_launches = report["dryrun"]["launches"]
     train_launches = report["train"]["hfl"]["launches"]
     k4_main = report["serve"]["mamba2-1.3b"]["launches"][3]
     k4_tc_main = report["serve"]["mamba2-1.3b"]["launches"][6]
@@ -2042,6 +2259,7 @@ def main() -> int:
     kernels = [{
         "name": "quant_agg_stacked",
         "train_launches": train_launches[0],
+        "dryrun_launches": dry_launches[0],
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/quant_agg.cu",
         "replaces": "src/repro/kernels/quant_agg.py:100",
@@ -2064,6 +2282,7 @@ def main() -> int:
     }, {
         "name": "trimmed_agg_stacked",
         "train_launches": train_launches[1],
+        "dryrun_launches": dry_launches[1],
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/trimmed_agg.cu",
         "replaces": "src/repro/kernels/trimmed_agg.py:79",
@@ -2090,6 +2309,7 @@ def main() -> int:
     }, {
         "name": "quant_agg",
         "train_launches": train_launches[2],
+        "dryrun_launches": dry_launches[2],
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/quant_agg.cu",
         "replaces": "src/repro/kernels/quant_agg.py:53",
@@ -2112,6 +2332,7 @@ def main() -> int:
     }, {
         "name": "ssd_chunk",
         "train_launches": train_launches[3],
+        "dryrun_launches": dry_launches[3],
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/ssd_scan_tc.cu",
         "cuda_core_source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
@@ -2139,6 +2360,7 @@ def main() -> int:
     }, {
         "name": "swa_attention",
         "train_launches": train_launches[4],
+        "dryrun_launches": dry_launches[4],
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/swa_attention_tc.cu",
         "cuda_core_source": "src/repro_torch/kernels/csrc/swa_attention.cu",

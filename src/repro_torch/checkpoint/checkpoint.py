@@ -6,7 +6,7 @@ Leaves are stored under their joined tree path (dict keys, tuple indices,
 NamedTuple field names: ``params/layers/0/ssm/in_proj``, ``opt/step``);
 structure round-trips through any dict/tuple/NamedTuple nesting
 (``TrainState`` included). ``restore_pytree`` places every leaf on the
-``device`` it is given.
+``device`` it is given, or shards it over a ``DeviceMesh``.
 
 Durability (the on-disk fault story): ``save_pytree`` writes to a temp
 file in the target directory, fsyncs it and ``os.replace``s it into place
@@ -97,10 +97,17 @@ def save_pytree(path, tree, extra_meta=None):
     return path
 
 
-def restore_pytree(path, template, device="cuda"):
+def restore_pytree(path, template, device="cuda", mesh=None,
+                   placements=None):
     """Restore into the structure of ``template`` (values ignored; a tree
     of tensors, meta tensors included), every leaf in its template
-    leaf's dtype on ``device`` (default the card)."""
+    leaf's dtype on ``device`` (default the card).
+
+    ``placements``: optional tree of DTensor placements matching
+    ``template`` (``sharding.partition.named``), over the ``DeviceMesh``
+    ``mesh`` of ``device``'s type: each leaf is ``distribute_tensor``ed
+    with its placements, so a checkpoint written on one mesh restores onto
+    another (the reference's ``shardings=``)."""
     device = resolve_device(device)
     leaves = {}
     with np.load(path, allow_pickle=False) as data:
@@ -119,7 +126,14 @@ def restore_pytree(path, template, device="cuda"):
                                  f"{tuple(leaf.shape)}")
             leaves[key] = torch.from_numpy(np.ascontiguousarray(arr)).to(
                 device=device, dtype=leaf.dtype)
-    return _unflatten(template, leaves)
+    tree = _unflatten(template, leaves)
+    if placements is None:
+        return tree
+    from torch.distributed.tensor import distribute_tensor
+
+    from repro_torch.optim.optimizers import tree_map
+    return tree_map(lambda t, pl: distribute_tensor(t, mesh, pl), tree,
+                    placements)
 
 
 def load_meta(path):

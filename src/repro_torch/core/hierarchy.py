@@ -19,8 +19,8 @@ axis on one card). Training:
     sync calls no kernel either), in the reference's order of float32
     operations, so the sync is bitwise equal to the reference's.
 
-The sharding specs of the reference's mesh (``hfl_state_specs``,
-``hfl_batch_specs``) are not ported.
+On a mesh, ``hfl_state_specs`` and ``hfl_batch_specs`` map the clusters
+axis to the ``pod`` mesh dimension, as the reference's.
 """
 from __future__ import annotations
 
@@ -231,3 +231,24 @@ def sync_interval_from_orbits(plan, hw, model_bytes: float,
     t_cur, _ = chained
     h = int((t_cur - t) // max(step_time_s, 1e-9))
     return int(min(max(h, 1), max_h))
+
+
+# ---------------------------------------------------------------------------
+# sharding specs for the HFL mode
+# ---------------------------------------------------------------------------
+
+
+def hfl_state_specs(cfg, mesh, expert_parallel=False):
+    """Param/opt specs with the leading clusters axis mapped to ``pod``."""
+    from repro_torch.sharding.partition import P, train_state_specs
+    base = train_state_specs(cfg, mesh, expert_parallel)
+    return tree_map(lambda spec: P(*(("pod",) + tuple(spec))), base)
+
+
+def hfl_batch_specs(cfg, mesh, batch_tree):
+    """Batch (C, local_b, ...) with C over ``pod`` and local_b over
+    ``data``."""
+    from repro_torch.sharding.partition import P
+    return tree_map(
+        lambda leaf: P(*(("pod", "data") + (None,) * (leaf.dim() - 2))),
+        batch_tree)

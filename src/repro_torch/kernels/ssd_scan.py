@@ -128,8 +128,9 @@ def _check(x, dt, A, B, C):
 def ssd_chunk(x, dt, A, B, C):
     """(y_diag, states) of the SSD intra-chunk stage; see the module
     docstring. CUDA tensors launch the kernel; CPU tensors take the plain
-    version."""
+    version; meta and fake tensors raise ``ValueError``."""
     _check(x, dt, A, B, C)
+    _build.require_storage("ssd_chunk", x, dt, A, B, C)
     if x.device.type == "cpu":
         return ssd_chunk_plain(x, dt, A, B, C)
     if x.device.type != "cuda":

@@ -119,8 +119,9 @@ def _check(q, k, v, window):
 def swa_attention(q, k, v, window=0, causal=True):
     """Sliding-window (``window`` > 0) or full attention, causal or not;
     see the module docstring. CUDA tensors launch the kernel; CPU tensors
-    take the plain version."""
+    take the plain version; meta and fake tensors raise ``ValueError``."""
     _check(q, k, v, window)
+    _build.require_storage("swa_attention", q, k, v)
     if q.device.type == "cpu":
         return swa_attention_plain(q, k, v, window, causal)
     if q.device.type != "cuda":

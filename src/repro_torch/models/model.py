@@ -1,6 +1,6 @@
 """Model assembly: init / teacher-forced forward / prefill / decode for every
 architecture of ``repro_torch.configs``. Port of the JAX package's
-``models/model.py`` (all of it but ``abstract_params``, a dry-run tool).
+``models/model.py``.
 
 Layers are grouped by their offset inside the *effective period* P =
 lcm(layer_period, moe.every): the layers at one offset share structure and
@@ -487,3 +487,9 @@ def convert_prefill_cache(cfg, cache, prefill_len, target_len, dtype=None):
                 ne[name] = arr
         out.append(ne)
     return tuple(out)
+
+
+def abstract_params(cfg):
+    """Shape/dtype tree of params on the ``meta`` device, without storage
+    (for the sharding rules and the dry run)."""
+    return init_params(cfg, torch.Generator(), device="meta")

@@ -9,7 +9,7 @@ buffer, batched expert matmuls, and a scatter-add combine.
 Router: softmax over experts then top-k (ties to the lower expert index, as
 ``lax.top_k``), renormalised (Mixtral-style), with the Switch-style
 load-balance auxiliary loss. On the card the two scatter-adds
-(``index_add_``) use atomics: kept rows own distinct slots and dropped rows
+(``index_add``) use atomics: kept rows own distinct slots and dropped rows
 add exact zeros, so the dispatch is exact; the combine adds top_k terms per
 token in no fixed order.
 """
@@ -37,6 +37,16 @@ def init_moe(gen, cfg, d, device, lead=()):
     return p
 
 
+def expert_counts(flat_e, n_experts):
+    """(n_experts,) int64 count of each expert id in ``flat_e``, as
+    ``torch.bincount(flat_e, minlength=n_experts)``: an ``index_add`` of
+    ones (integer adds, exact in any order), which DTensor can shard and
+    bincount is not."""
+    return torch.zeros(n_experts, dtype=torch.int64,
+                       device=flat_e.device).index_add(
+        0, flat_e, torch.ones_like(flat_e))
+
+
 def router_topk(p, x2d, cfg):
     """x2d (T, D) -> (gates (T,k), idx (T,k), aux_loss scalar float32)."""
     m = cfg.moe
@@ -46,7 +56,7 @@ def router_topk(p, x2d, cfg):
     gates, idx = srt.values[:, :m.top_k], srt.indices[:, :m.top_k]
     gates = gates / torch.clamp_min(gates.sum(-1, keepdim=True), 1e-9)
     # Switch-style load-balance loss: E * sum_e f_e * p_e
-    counts = torch.bincount(idx.reshape(-1), minlength=m.n_experts)
+    counts = expert_counts(idx.reshape(-1), m.n_experts)
     e_onehot_mean = counts.to(torch.float32) / idx.numel()
     p_mean = probs.mean(0)
     aux = m.n_experts * (e_onehot_mean * p_mean).sum()
@@ -65,7 +75,7 @@ def _dispatch_indices(idx, n_experts, capacity):
     order = torch.argsort(flat_e, stable=True)           # sorted by expert
     sorted_e = flat_e[order]
     # rank within expert = position - start offset of that expert
-    counts = torch.bincount(sorted_e, minlength=n_experts)
+    counts = expert_counts(sorted_e, n_experts)
     starts = torch.cumsum(counts, 0) - counts
     rank = torch.arange(tk, device=idx.device) - starts[sorted_e]
     keep = rank < capacity
@@ -98,9 +108,11 @@ def apply_moe(p, x, cfg):
 
     # gather tokens into an (E*capacity, D) buffer. Dropped rows all collide
     # on slot capacity-1: they add 0, so they cannot clobber a kept row.
+    # (out-of-place adds into zeros: DTensor can add into a buffer the
+    # model makes only as a new tensor)
     buf = torch.zeros((m.n_experts * capacity, d), dtype=x.dtype,
-                      device=x.device)
-    buf.index_add_(0, slot, torch.where(keep[:, None], x2d[token_of], 0))
+                      device=x.device).index_add(
+        0, slot, torch.where(keep[:, None], x2d[token_of], 0))
     buf = buf.reshape(m.n_experts, capacity, d)
 
     # expert computation (batched over E)
@@ -113,6 +125,6 @@ def apply_moe(p, x, cfg):
 
     # combine: weighted scatter-add back to tokens
     contrib = out_buf[slot] * (gate_of * keep.to(gate_of.dtype))[:, None]
-    y = torch.zeros((t, d), dtype=x.dtype, device=x.device)
-    y.index_add_(0, token_of, contrib)
+    y = torch.zeros((t, d), dtype=x.dtype, device=x.device).index_add(
+        0, token_of, contrib)
     return y.reshape(b, s, d), aux

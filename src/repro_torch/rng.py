@@ -10,6 +10,10 @@ reference's exact key stream:
 dataset draws (``data/synthetic.py``, seed = ``SimConfig.seed``)
     ``class_prototypes``, ``label_mix``, ``client_labels``,
     ``train_noise``, ``test_labels``, ``test_noise``;
+partitioning an existing label array (``data/partition.py``)
+    ``partition_mix`` — the reference's ``dirichlet(key, ...)`` per-client
+    class mix; ``sample_clients`` — its per-sample ``choice`` of a client
+    over ``split(key, n_samples)``;
 model init (``models/small.py``, seed = ``FLConfig.seed``)
     ``init_normals`` — the reference's ``split(PRNGKey(seed))`` init key;
 training order (``core/spaceify.py``, ``core/autoflsat.py``)
@@ -60,6 +64,15 @@ class TorchRandom:
         """(K, N) int64 labels, row k drawn from ``probs[k]``."""
         return torch.multinomial(probs.to(torch.float64), n_per_client,
                                  replacement=True, generator=self.g)
+
+    def partition_mix(self, n_clients: int, n_classes: int, alpha: float):
+        """Per-client class probabilities ~ Dirichlet(alpha), (K, C)."""
+        return self.label_mix(n_clients, n_classes, alpha)
+
+    def sample_clients(self, probs):
+        """(N,) int64: sample i's client, drawn from ``probs[i]`` (N, K)."""
+        return torch.multinomial(probs.to(torch.float64), 1,
+                                 generator=self.g)[:, 0]
 
     def train_noise(self, shape):
         return torch.randn(tuple(shape), generator=self.g)

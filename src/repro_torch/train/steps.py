@@ -28,9 +28,12 @@ def cross_entropy(logits, labels):
     """logits (B,S,V) f32; labels (B,S) integer, <0 = masked."""
     mask = (labels >= 0).to(torch.float32)
     labels_safe = torch.clamp_min(labels, 0).to(torch.int64)
-    logz = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, labels_safe[..., None])[..., 0]
-    nll = (logz - gold) * mask
+    logz = torch.logsumexp(logits, dim=-1, keepdim=True)
+    # the gold logit stays (B,S,1) until the subtraction: with the vocab
+    # sharded, DTensor's gather leaves a masked partial sum that it can
+    # reduce only in the shape the gather gave
+    gold = torch.gather(logits, -1, labels_safe[..., None])
+    nll = (logz - gold)[..., 0] * mask
     return nll.sum() / torch.clamp_min(mask.sum(), 1.0)
 
 

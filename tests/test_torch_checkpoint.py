@@ -7,6 +7,7 @@ atomic writes, per-leaf CRC32, legacy files without CRCs, the ``.npz``
 suffix rule, shape and missing-leaf checks (the cases of
 ``tests/test_checkpoint.py``).
 """
+import contextlib
 import dataclasses
 
 import jax
@@ -153,3 +154,45 @@ def test_legacy_checkpoint_without_crc_restores(tmp_path):
     np.savez(p, w=np.ones((3,), np.float32))
     back = TC.restore_pytree(p, {"w": torch.zeros((3,))}, device="cpu")
     np.testing.assert_array_equal(back["w"].numpy(), 1.0)
+
+
+@pytest.mark.parametrize("world", ["gloo", "fake"])
+def test_restore_onto_a_one_rank_mesh(tmp_path, world):
+    """``restore_pytree(..., mesh=, placements=)`` (the reference's
+    ``shardings=``): every leaf a DTensor with the HFL placements on a
+    one-rank (pod, data, model) mesh, its local shard equal to the plain
+    restore."""
+    from repro_torch.launch.dryrun import fake_world
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.sharding import named
+    _, cfg = _cfgs()
+    state = TH.init_hfl_state(cfg, 2, torch.Generator().manual_seed(0),
+                              device="cpu")
+    path = TC.save_pytree(tmp_path / "hfl", state)
+    template = TH.abstract_hfl_state(cfg, 2)
+    plain = TC.restore_pytree(path, template, device="cpu")
+    with (_gloo_world() if world == "gloo" else fake_world(1)):
+        mesh = make_local_mesh(1, 1, pod=1, device_type="cpu")
+        pls = named(mesh, TH.hfl_state_specs(cfg, mesh))
+        back = TC.restore_pytree(path, template, device="cpu", mesh=mesh,
+                                 placements=pls)
+        leaves = tree_leaves(back)
+        assert len(leaves) == len(tree_leaves(plain))
+        for a, b in zip(leaves, tree_leaves(plain)):
+            assert a.device_mesh is mesh
+            assert torch.equal(a.to_local(), b)
+        # the mesh dims have size 1: every placement replicates
+        assert {p.is_replicate() for a in leaves for p in a.placements} \
+            == {True}
+
+
+@contextlib.contextmanager
+def _gloo_world():
+    """This process as the one rank of a gloo process group."""
+    import torch.distributed as dist
+    dist.init_process_group("gloo", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()

@@ -39,7 +39,11 @@ def test_module_list_covers_the_slice():
               "repro_torch.train", "repro_torch.train.steps",
               "repro_torch.checkpoint", "repro_torch.checkpoint.checkpoint",
               "repro_torch.core.hierarchy", "repro_torch.launch.train",
-              "repro_torch.hierarchical_llm_train"):
+              "repro_torch.hierarchical_llm_train",
+              "repro_torch.launch.mesh", "repro_torch.launch.specs",
+              "repro_torch.launch.op_analysis", "repro_torch.launch.dryrun",
+              "repro_torch.sharding", "repro_torch.sharding.partition",
+              "repro_torch.data.partition"):
         assert m in mods
 
 

@@ -43,7 +43,7 @@ class JaxRandom:
     stream of the JAX package for one seed, draw site by draw site."""
 
     def __init__(self, seed):
-        key = jax.random.PRNGKey(seed)
+        key = self.seed_key = jax.random.PRNGKey(seed)
         # engine: spaceify.py ``self.key, init_key = split(PRNGKey(seed))``
         self.key, self.init_key = jax.random.split(key)
         # dataset: synthetic.py ``km, kl, kx, kt, ky = split(key, 5)``
@@ -67,6 +67,19 @@ class JaxRandom:
         draw = jax.vmap(lambda k, p: jax.random.choice(
             k, n_classes, (n_per_client,), p=p))
         return _t(draw(keys, jnp.asarray(probs.numpy())).astype(jnp.int32))
+
+    def partition_mix(self, n_clients, n_classes, alpha):
+        # data/partition.py ``dirichlet_partition(PRNGKey(seed), ...)``
+        return _t(jax.random.dirichlet(self.seed_key,
+                                       jnp.full((n_classes,), alpha),
+                                       (n_clients,)))
+
+    def sample_clients(self, probs):
+        keys = jax.random.split(self.seed_key, probs.shape[0])
+        n_clients = probs.shape[1]
+        draw = jax.vmap(lambda k, p: jax.random.choice(k, n_clients, (),
+                                                       p=p))
+        return _t(draw(keys, jnp.asarray(probs.numpy())))
 
     def train_noise(self, shape):
         return _t(jax.random.normal(self.kx, tuple(shape)))
@@ -257,3 +270,34 @@ def test_cuda_entry_points_raise_without_a_card():
     with pytest.raises(RuntimeError, match="cuda"):
         tfs.FLySTacK(tfs.SimConfig(n_clusters=1, sats_per_cluster=2,
                                    horizon_days=0.01))
+
+
+@pytest.mark.parametrize("seed,n_clients,alpha", [(0, 4, 0.5), (3, 6, 1.0),
+                                                  (7, 3, 100.0)])
+def test_dirichlet_partition_equals_reference(seed, n_clients, alpha):
+    """``data.partition.dirichlet_partition`` with the reference's draws:
+    the same client index lists, truncated to the smallest client."""
+    from repro.data import dirichlet_partition as jax_partition
+    from repro_torch.data import dirichlet_partition
+    labels = np.random.default_rng(seed).integers(0, 10, 600)
+    want = np.asarray(jax_partition(jax.random.PRNGKey(seed),
+                                    jnp.asarray(labels, jnp.int32),
+                                    n_clients, alpha))
+    got = dirichlet_partition(JaxRandom(seed), torch.from_numpy(labels),
+                              n_clients, alpha)
+    assert got.dtype == torch.int64
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_dirichlet_partition_torch_source():
+    from repro_torch.data import dirichlet_partition
+    from repro_torch.rng import TorchRandom
+    labels = torch.from_numpy(np.random.default_rng(1).integers(0, 5, 400))
+    a = dirichlet_partition(TorchRandom(2), labels, 4, 0.5)
+    b = dirichlet_partition(TorchRandom(2), labels, 4, 0.5)
+    assert torch.equal(a, b) and a.shape[0] == 4 and a.shape[1] >= 1
+    for row in a:                       # distinct samples, sorted per client
+        assert len(set(row.tolist())) == row.numel()
+        assert torch.equal(row, torch.sort(row).values)
+    flat = a.reshape(-1).tolist()
+    assert len(set(flat)) == len(flat)  # no sample in two clients
