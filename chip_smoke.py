@@ -1411,8 +1411,11 @@ def train_phase(torch, reset_counts, read_counts):
 # this share of max_memory_allocated), and the sharded restore. The
 # production dry runs (256 and 512 fake ranks) are not run here: torch
 # 2.11's DTensor cannot shard the port's steps (no strided shards, no
-# [Shard(0), Shard(0)] rule for indexing, no rule for flip);
-# tools/dryrun_probe.py shows which dry runs an installed torch traces.
+# [Shard(0), Shard(0)] rule for indexing, no rule for flip). The dry run
+# itself runs over meta tensors in a process of its own, where no kernel
+# can launch (the wrappers refuse tensors without storage); the launch
+# counts of the kernels line (phase11_card_launches) are those of the
+# card's step and restore.
 DRY_ARCH, DRY_SHAPE = "mamba2-1.3b", ("chip_train", 1024, 4, "train")
 DRY_PEAK_BAR = 0.10
 DRY_TIMEOUT_S = 300
@@ -2259,7 +2262,7 @@ def main() -> int:
     kernels = [{
         "name": "quant_agg_stacked",
         "train_launches": train_launches[0],
-        "dryrun_launches": dry_launches[0],
+        "phase11_card_launches": dry_launches[0],
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/quant_agg.cu",
         "replaces": "src/repro/kernels/quant_agg.py:100",
@@ -2282,7 +2285,7 @@ def main() -> int:
     }, {
         "name": "trimmed_agg_stacked",
         "train_launches": train_launches[1],
-        "dryrun_launches": dry_launches[1],
+        "phase11_card_launches": dry_launches[1],
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/trimmed_agg.cu",
         "replaces": "src/repro/kernels/trimmed_agg.py:79",
@@ -2309,7 +2312,7 @@ def main() -> int:
     }, {
         "name": "quant_agg",
         "train_launches": train_launches[2],
-        "dryrun_launches": dry_launches[2],
+        "phase11_card_launches": dry_launches[2],
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/quant_agg.cu",
         "replaces": "src/repro/kernels/quant_agg.py:53",
@@ -2332,7 +2335,7 @@ def main() -> int:
     }, {
         "name": "ssd_chunk",
         "train_launches": train_launches[3],
-        "dryrun_launches": dry_launches[3],
+        "phase11_card_launches": dry_launches[3],
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/ssd_scan_tc.cu",
         "cuda_core_source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
@@ -2360,7 +2363,7 @@ def main() -> int:
     }, {
         "name": "swa_attention",
         "train_launches": train_launches[4],
-        "dryrun_launches": dry_launches[4],
+        "phase11_card_launches": dry_launches[4],
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/swa_attention_tc.cu",
         "cuda_core_source": "src/repro_torch/kernels/csrc/swa_attention.cu",

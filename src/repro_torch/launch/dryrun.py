@@ -17,7 +17,15 @@ device type is the traced device's: ``cuda`` by default (the card's
 program, no card needed: the shards are meta) or ``cpu``
 (``--device cpu``). Plain tensors the model makes on the fly (rope
 tables, masks, positions) meet the DTensors as replicated
-(``implicit_replication``). The kernel routes (``attn_impl="flash"``,
+(``implicit_replication``). DTensor places each op by itself; two modes
+make its per-rank program the one the rules plan, as XLA's partitioner
+does from the whole step: ``FsdpGather`` gathers a weight's ``data``
+(FSDP storage) shard before each product and lookup, and
+``PartitionerPlacements`` keeps ``new_zeros`` sharded and gathers a dim
+before a view splits it unevenly. ``tests/test_torch_dryrun.py`` holds
+the per-rank matmul FLOPs and peak against the one-rank trace of the same
+step and against the JAX package's compiled program on a (4, 2) mesh.
+The kernel routes (``attn_impl="flash"``,
 ``ssm_impl="pallas"``) hand data pointers to their kernels and cannot be
 traced: such a run is recorded as an error.
 
@@ -40,8 +48,11 @@ import math
 import pathlib
 import time
 import traceback
+import weakref
 
 import torch
+from torch.overrides import TorchFunctionMode
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from repro_torch.configs import ARCH_IDS, INPUT_SHAPES, get_config
 from repro_torch.core import hierarchy as H
@@ -51,6 +62,7 @@ from repro_torch.launch.op_analysis import OpAnalyzer
 from repro_torch.models import model as M
 from repro_torch.optim.optimizers import tree_leaves, tree_map
 from repro_torch.sharding import partition as PT
+from repro_torch.sharding.partition import map_with_path
 from repro_torch.train import steps as ST
 
 
@@ -93,20 +105,27 @@ def sharded(tree, placements, mesh):
 def meta_dtensor(shape, dtype, mesh, placements):
     """A DTensor of global ``shape`` over a ``meta`` local shard; on a
     one-rank mesh, where every placement replicates and DTensor adds
-    nothing, the plain ``meta`` tensor (so the one-rank trace also runs
-    on a torch whose DTensor lacks a rule for some op, as 2.11's lacks
-    one for ``flip``)."""
+    nothing, the plain ``meta`` tensor. The one-rank trace is what
+    ``chip_smoke.py`` phase 11 holds against the card, whose torch 2.11
+    has no DTensor rule for some of the step's ops (``flip``); DTensor
+    is exercised by the sharded meshes of the CPU tests."""
     if mesh.size() == 1:
         return torch.empty(tuple(shape), dtype=dtype, device="meta")
+    return _dtensor_of(torch.empty, shape, dtype, mesh, placements, "meta")
+
+
+def _dtensor_of(factory, shape, dtype, mesh, placements, device):
+    """A DTensor of global ``shape`` whose local shard ``factory`` makes."""
+    from torch._prims_common import make_contiguous_strides_for
     from torch.distributed.tensor import DTensor
     from torch.distributed.tensor._utils import (
         compute_local_shape_and_global_offset)
     local, _ = compute_local_shape_and_global_offset(tuple(shape), mesh,
                                                       placements)
     return DTensor.from_local(
-        torch.empty(local, dtype=dtype, device="meta"), mesh, placements,
+        factory(local, dtype=dtype, device=device), mesh, placements,
         run_check=False, shape=torch.Size(shape),
-        stride=torch.empty(tuple(shape), device="meta").stride())
+        stride=make_contiguous_strides_for(tuple(shape)))
 
 
 def build_hfl_steps_and_args(cfg, shape, mesh, quant_bits=0):
@@ -119,6 +138,7 @@ def build_hfl_steps_and_args(cfg, shape, mesh, quant_bits=0):
     over the clusters axis would gather it), so the local step emits no
     ``pod`` collective; the sync averages over the whole mesh's ``pod``
     dim."""
+    from torch.distributed.tensor import Shard
     names = tuple(mesh.mesh_dim_names)
     n_pods = dict(zip(names, mesh.shape)).get("pod", 1)
     assert n_pods > 1, "HFL dry-run needs the multi-pod mesh"
@@ -137,14 +157,21 @@ def build_hfl_steps_and_args(cfg, shape, mesh, quant_bits=0):
         return tree_map(lambda t, pl: meta_dtensor(
             (1,) + tuple(t.shape[1:]), t.dtype, sub, pl[1:]), tree, pls)
 
+    def pod_batch(tree, pls):
+        """A pod's batch (the leading dim dropped) on the submesh."""
+        return tree_map(lambda t, pl: meta_dtensor(
+            tuple(t.shape[1:]), t.dtype, sub,
+            [Shard(p.dim - 1) if p.is_shard() else p for p in pl[1:]]),
+            tree, pls)
+
     local_step = H.make_hfl_local_step(cfg)
 
     def local(state, batch):
-        return local_step(state, [tree_map(lambda x: x[0], batch)])
+        return local_step(state, [batch])
 
     sync = H.make_cluster_sync(cfg, quant_bits=quant_bits)
     return ((local, (pod_local(state_abs, state_pl),
-                     pod_local(hfl_batch, batch_pl))),
+                     pod_batch(hfl_batch, batch_pl))),
             (sync, (sharded(state_abs, state_pl, mesh),)))
 
 
@@ -181,30 +208,213 @@ def build_step_and_args(cfg, shape, mesh, expert_parallel=False):
         sharded(ins["pos"], dpl["pos"], mesh))
 
 
-def trace(fn, args, mesh=None):
+def _storage(t):
+    from torch.distributed.tensor import DTensor
+    return (t._local_tensor if isinstance(t, DTensor) else t).untyped_storage()
+
+
+class FsdpGather(TorchFunctionMode):
+    """The rules' ``data`` axis on a weight is FSDP storage: a step gathers
+    a weight over ``data`` just before using it, layer by layer. DTensor
+    has no such plan; it places op by op, by the bytes each choice
+    moves, and often keeps a weight's ``data`` shard and moves the
+    activations instead: at the embedding lookup it gathers the batch
+    (every rank then computes the whole batch), at the unembedding it
+    shards the contraction and then gathers the whole vocab of logits.
+    Under this mode every operand of a product (``einsum``, ``matmul``,
+    ``bmm``, ``linear``) or a lookup (``table[indices]``) that comes from
+    ``weights`` (by storage, through casts, views and slices) is gathered
+    over the ``fsdp`` mesh dims first. Autograd reduce-scatters its
+    gradient back to the storage placements."""
+
+    _PRODUCTS = {torch.matmul, torch.Tensor.matmul, torch.bmm,
+                 torch.Tensor.bmm, torch.mm, torch.Tensor.mm,
+                 torch.nn.functional.linear}
+    _CARRY = {torch.Tensor.to, torch.Tensor.float, torch.Tensor.bfloat16,
+              torch.Tensor.half, torch.Tensor.contiguous, torch.Tensor.t,
+              torch.Tensor.T.__get__, torch.Tensor.transpose,
+              torch.Tensor.permute, torch.Tensor.reshape, torch.Tensor.view,
+              torch.Tensor.unbind, torch.unbind, torch.Tensor.detach,
+              torch.Tensor.requires_grad_, torch.Tensor.__getitem__}
+
+    def __init__(self, weights, fsdp):
+        super().__init__()
+        # storage address -> weakref: an address is dropped when its
+        # storage is freed, before a new storage can take it
+        self._w = {}
+        self._fsdp = tuple(fsdp)
+        for t in weights:
+            self._mark(t)
+
+    def _mark(self, t):
+        st = _storage(t)
+        key = st._cdata
+        self._w[key] = weakref.ref(st, lambda _, k=key: self._w.pop(k, None))
+
+    def _is_weight(self, t):
+        from torch.distributed.tensor import DTensor
+        return isinstance(t, DTensor) and _storage(t)._cdata in self._w
+
+    def _gather(self, t):
+        from torch.distributed.tensor import Replicate
+        if not self._is_weight(t):
+            return t
+        pl = [Replicate() if i in self._fsdp and p.is_shard() else p
+              for i, p in enumerate(t.placements)]
+        if pl == list(t.placements):
+            return t
+        return t.redistribute(t.device_mesh, pl)
+
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+        from torch.distributed.tensor import DTensor
+        kwargs = kwargs or {}
+        lookup = func is torch.Tensor.__getitem__ and \
+            isinstance(args[1], torch.Tensor)
+        if lookup:
+            args = (self._gather(args[0]),) + tuple(args[1:])
+        elif func is torch.einsum:
+            ops = args[1] if len(args) == 2 and \
+                isinstance(args[1], (list, tuple)) else args[1:]
+            args = (args[0],) + tuple(self._gather(a) for a in ops)
+        elif func in self._PRODUCTS:
+            args = tuple(self._gather(a) for a in args)
+        out = func(*args, **kwargs)
+        if func in self._CARRY and not lookup and self._is_weight(args[0]):
+            for t in (out if isinstance(out, (list, tuple)) else (out,)):
+                if isinstance(t, DTensor):
+                    self._mark(t)
+        return out
+
+
+def _split_groups(src, dst):
+    """Pair the dims of a view from shape ``src`` to shape ``dst``:
+    ``[(source dims, target dims)]``, each group the fewest dims on both
+    sides with equal products (size-1 dims join the group before them)."""
+    groups, i, j = [], 0, 0
+    while i < len(src) or j < len(dst):
+        gi, gj, a, b = [], [], 1, 1
+        while True:
+            if a <= b and i < len(src) and (a < b or not gi):
+                a *= src[i]
+                gi.append(i)
+                i += 1
+            elif j < len(dst) and (b < a or not gj):
+                b *= dst[j]
+                gj.append(j)
+                j += 1
+            else:
+                break
+        while i < len(src) and src[i] == 1:
+            gi.append(i)
+            i += 1
+        while j < len(dst) and dst[j] == 1:
+            gj.append(j)
+            j += 1
+        groups.append((gi, gj))
+    return groups
+
+
+class PartitionerPlacements(TorchDispatchMode):
+    """Two places where DTensor's op-by-op placement departs from what a
+    partitioner of the whole step (XLA's) does, put right for the dry run:
+
+    * ``new_zeros`` on a DTensor gives a replicated tensor of the whole
+      size, whatever the DTensor's sharding: gather's backward
+      (``grad.new_zeros(logits shape)``, then ``scatter_add``) would make
+      every rank hold the whole batch's logit gradient (196 GiB for
+      mamba2-1.3b's ``train_4k``). Here the zeros keep the DTensor's shards
+      on the dims whose size they share with it.
+    * A view that splits a sharded dim into factors whose first one the
+      mesh dim does not divide (a projection's heads x hd output, sharded
+      over 16 ranks, back into 40, 12 or 8 heads) has no DTensor rule.
+      XLA pads such a dim; here the view's input is gathered over those
+      mesh dims first, so the heads after it are replicated there."""
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        from torch.distributed.tensor import DTensor, Replicate
+        kwargs = kwargs or {}
+        x = args[0] if args else None
+        if not isinstance(x, DTensor):
+            return func(*args, **kwargs)
+        if func is torch.ops.aten.new_zeros.default and \
+                len(args[1]) == x.ndim:
+            size = tuple(args[1])
+            pl = [p if p.is_shard() and size[p.dim] == x.shape[p.dim]
+                  else Replicate() for p in x.placements]
+            return _dtensor_of(torch.zeros, size,
+                               kwargs.get("dtype") or x.dtype,
+                               x.device_mesh, pl, x._local_tensor.device)
+        if func in (torch.ops.aten.view.default,
+                    torch.ops.aten._unsafe_view.default):
+            size = list(args[1])
+            if -1 in size:
+                k = size.index(-1)
+                size[k] = x.numel() // -math.prod(size)
+            gather = set()
+            for src, dst in _split_groups(tuple(x.shape), size):
+                dst = [d for d in dst if size[d] > 1]
+                if len(src) != 1 or len(dst) < 2:
+                    continue
+                over = [i for i, p in enumerate(x.placements)
+                        if p.is_shard(src[0])]
+                n = math.prod(x.device_mesh.size(i) for i in over)
+                if size[dst[0]] % n:
+                    gather.update(over)
+            if gather:
+                pl = [Replicate() if i in gather else p
+                      for i, p in enumerate(x.placements)]
+                with torch.no_grad():
+                    x = x.redistribute(x.device_mesh, pl)
+                args = (x,) + tuple(args[1:])
+        return func(*args, **kwargs)
+
+
+def trace(fn, args, mesh=None, weights=(), fsdp=()):
     """Run ``fn(*args)`` once under the analyzer, its arguments counted
     live throughout (the caller holds them, as a trainer holds its state
-    through a step). Returns the ``ModuleStats``."""
+    through a step), ``weights`` gathered over the ``fsdp`` mesh dims as
+    they are used. Returns the ``ModuleStats``."""
     from torch.distributed.tensor.experimental import implicit_replication
     an = OpAnalyzer("meta", mesh)
     an.track(tree_leaves(args))
-    with implicit_replication(), an:
+    # PartitionerPlacements inside the analyzer: a mode that gives DTensor
+    # ops back (the analyzer) hides them from the modes outside it
+    with implicit_replication(), FsdpGather(weights, fsdp), an, \
+            PartitionerPlacements():
         out = fn(*args)
     del out
     return an.stats()
 
 
+def _fsdp_weights(params, mesh):
+    """(the weights a step gathers over ``data``, the ``data`` mesh dim):
+    every leaf but the experts'. An expert's product takes its tokens from
+    the dispatch buffer, which is not sharded by batch, so gathering the
+    expert over ``data`` would repeat the product on every ``data`` rank;
+    DTensor's own choice (the contraction over ``data``) is kept, and
+    under expert parallelism the ``data`` shard is the expert dim."""
+    out = []
+    map_with_path(lambda path, t: None if "moe" in path and path[-1] in (
+        "wi", "wg", "wo") else out.append(t), params)
+    return out, (tuple(mesh.mesh_dim_names).index("data"),)
+
+
 def analyze_step(cfg, shape, mesh, expert_parallel=False):
     """Trace ``cfg``'s step at ``shape`` on ``mesh`` over meta shards."""
     fn, args = build_step_and_args(cfg, shape, mesh, expert_parallel)
-    return trace(fn, args, mesh)
+    params = args[0].params if shape.kind == "train" else args[0]
+    weights, fsdp = _fsdp_weights(params, mesh)
+    return trace(fn, args, mesh, weights, fsdp)
 
 
 def analyze_hfl(cfg, shape, mesh, quant_bits=0):
     """(local step stats, sync stats) of the hierarchical mode."""
     (fn, args), (sync_fn, sync_args) = build_hfl_steps_and_args(
         cfg, shape, mesh, quant_bits=quant_bits)
-    return trace(fn, args, mesh), trace(sync_fn, sync_args, mesh)
+    weights, fsdp = _fsdp_weights(
+        args[0].params, args[0].params["tok_embed"].device_mesh)
+    return (trace(fn, args, mesh, weights, fsdp),
+            trace(sync_fn, sync_args, mesh))
 
 
 def run_one(arch: str, shape_name, mesh_kind: str,

@@ -203,21 +203,6 @@ def _qkv(p, xq, xkv, cfg, q_positions=None, kv_positions=None, rope=True):
     return q, k, v
 
 
-def _gather_uneven_heads(q, kheads):
-    """``q`` as it is, but for a DTensor whose head dim (2) is sharded over
-    a mesh dim whose size does not divide ``kheads``: that dim is gathered
-    first, since DTensor cannot split an unevenly sharded dim into (kv
-    heads, group). The production mesh shards mixtral's 48 query heads 16
-    ways over 8 kv heads."""
-    from torch.distributed.tensor import DTensor, Replicate
-    if not isinstance(q, DTensor):
-        return q
-    mesh = q.device_mesh
-    pl = tuple(Replicate() if p.is_shard(2) and kheads % mesh.size(i)
-               else p for i, p in enumerate(q.placements))
-    return q if pl == tuple(q.placements) else q.redistribute(mesh, pl)
-
-
 def _gqa_scores_to_out(q, k, v, mask, cfg):
     """q (B,Q,H,hd); k,v (B,S,K,hd); mask (B?,Q,S) bool or None ->
     (B,Q,H,hd). Scores are float32 (the reference's
@@ -226,7 +211,7 @@ def _gqa_scores_to_out(q, k, v, mask, cfg):
     b, ql, h, hd = q.shape
     kheads = k.shape[2]
     g = h // kheads
-    qg = _gather_uneven_heads(q, kheads).reshape(b, ql, kheads, g, hd)
+    qg = q.reshape(b, ql, kheads, g, hd)
     scores = torch.einsum("bqkgh,bskh->bkgqs", qg.to(torch.float32),
                           k.to(torch.float32))
     scores = scores * (hd ** -0.5)

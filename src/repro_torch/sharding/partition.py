@@ -257,8 +257,11 @@ def placements(mesh, spec):
     ``Shard(tensor dim)`` or ``Replicate()``. A tuple entry shards one
     tensor dim over several mesh dims, major to minor, which is DTensor's
     order only when the names come in mesh order; it must. A mesh dim of
-    size 1 replicates: a shard over it is the whole dim, and DTensor's
-    view rules would refuse to flatten a dim "sharded" over it."""
+    size 1 replicates: a shard over it is the whole dim, and torch 2.11's
+    view rules refuse to flatten a dim "sharded" over it. (This serves
+    meshes with a dim of size 1, such as the one-rank mesh that
+    ``chip_smoke.py`` phase 11 restores onto; the one-rank dry run traces
+    plain tensors, ``launch.dryrun.meta_dtensor``.)"""
     from torch.distributed.tensor import Replicate, Shard
     names = tuple(mesh.mesh_dim_names)
     out = [Replicate()] * len(names)

@@ -222,11 +222,48 @@ SCRIPT = r"""
 import json, sys
 from repro_torch.configs import get_smoke_config, InputShape
 from repro_torch.launch import dryrun as D
-rec = D.run_one("%(arch)s", InputShape("t", 128, 8, "%(kind)s"), "local",
-                cfg=get_smoke_config("%(arch)s"), mesh_shape=(4, 2),
-                device="cpu")
-print(json.dumps({k: v for k, v in rec.items() if k != "traceback"}))
+out = {}
+for name, mesh in (("mesh", (4, 2)), ("one", (1, 1))):
+    rec = D.run_one("%(arch)s", InputShape("t", 128, 8, "%(kind)s"), "local",
+                    cfg=get_smoke_config("%(arch)s"), mesh_shape=mesh,
+                    device="cpu")
+    out[name] = {k: v for k, v in rec.items() if k != "traceback"}
+print(json.dumps(out))
 """
+
+# the reference's own small-mesh case (tests/test_dryrun_small.py), with
+# its HLO's dot FLOPs apart (the analysis again with dots billed 0) and
+# the compiled program's peak (arguments + temporaries + outputs not
+# aliased to an argument)
+REF_SCRIPT = r"""
+import os
+os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=8"
+import json, jax
+from repro.configs import get_smoke_config, InputShape
+from repro.launch import hlo_analysis as HA
+from repro.launch.dryrun import build_step_and_args
+
+mesh = jax.make_mesh((4, 2), ("data", "model"),
+                     axis_types=(jax.sharding.AxisType.Auto,) * 2)
+cfg = get_smoke_config("%(arch)s")
+fn, args = build_step_and_args(cfg, InputShape("t", 128, 8, "%(kind)s"), mesh)
+compiled = fn.lower(*args).compile()
+txt = compiled.as_text()
+flops = HA.analyze_module(txt).flops
+HA._dot_flops = lambda *a, **k: 0.0
+mem = compiled.memory_analysis()
+print(json.dumps({
+    "dot_flops": flops - HA.analyze_module(txt).flops,
+    "peak": mem.argument_size_in_bytes + mem.temp_size_in_bytes
+            + mem.output_size_in_bytes - mem.alias_size_in_bytes}))
+"""
+
+
+def _last_json(script, env):
+    out = subprocess.run([sys.executable, "-c", script], capture_output=True,
+                         text=True, env=env, timeout=300, cwd=REPO)
+    assert out.returncode == 0, out.stderr[-2000:]
+    return json.loads(out.stdout.strip().splitlines()[-1])
 
 
 @pytest.mark.parametrize("arch,kind", [
@@ -235,23 +272,36 @@ print(json.dumps({k: v for k, v in rec.items() if k != "traceback"}))
     ("mamba2-1.3b", "decode"),
 ])
 def test_small_mesh_dry_run(arch, kind):
-    """The reference's three small-mesh cases (its ``slow`` compile
-    test) on a (4, 2) fake mesh, in a process of their own. The mesh is a
-    ``cpu`` one: on a torch built without CUDA, DTensor's shape inference
-    for some ops (``_softmax_backward_data``) cannot make its fake tensors
-    of a ``cuda`` mesh; ``chip_smoke.py`` traces ``cuda`` on the card."""
+    """The reference's three small-mesh cases on a (4, 2) fake mesh, in a
+    process of their own, held against the same step traced on one rank
+    and against the reference's compiled program on 8 forced host
+    devices (which runs here in seconds). The mesh is a ``cpu`` one: on a
+    torch built without CUDA, DTensor's shape inference for some ops
+    (``_softmax_backward_data``) cannot make its fake tensors of a
+    ``cuda`` mesh; ``chip_smoke.py`` traces ``cuda`` on the card."""
     env = dict(os.environ, PYTHONPATH=f"{REPO}/src")
-    out = subprocess.run([sys.executable, "-c",
-                          SCRIPT % {"arch": arch, "kind": kind}],
-                         capture_output=True, text=True, env=env,
-                         timeout=300, cwd=REPO)
-    assert out.returncode == 0, out.stderr[-2000:]
-    r = json.loads(out.stdout.strip().splitlines()[-1])
+    case = {"arch": arch, "kind": kind}
+    port = _last_json(SCRIPT % case, env)
+    ref = _last_json(REF_SCRIPT % case, dict(env, JAX_PLATFORMS="cpu"))
+    r, one = port["mesh"], port["one"]
     assert r["status"] == "ok", r.get("error")
+    assert one["status"] == "ok", one.get("error")
     assert r["n_devices"] == 8
     assert r["op_flops_per_dev"] > 0
     assert r["n_collectives"] > 0          # sharded program must communicate
     assert r["mem_peak_bytes_per_dev"] >= 0
+    # a rank does its eighth of the step's matmul work, at most 20% more
+    # (the one-rank trace is the whole step)
+    share = one["op_matmul_flops_per_dev"] / 8
+    mm = r["op_matmul_flops_per_dev"]
+    assert share <= mm <= 1.2 * share, (mm, share)
+    # no more than the reference's partitioner gives a device: matmul
+    # FLOPs within 5% of its HLO's dots (qwen3's train step is 24% under
+    # them: XLA repeats part of the work), peak within 25% of its
+    # compiled program's (the port's peak lies 3-15% under to 15% over)
+    assert mm <= 1.05 * ref["dot_flops"], (mm, ref["dot_flops"])
+    assert r["mem_peak_bytes_per_dev"] <= 1.25 * ref["peak"], \
+        (r["mem_peak_bytes_per_dev"], ref["peak"])
 
 
 def test_hfl_local_step_emits_no_pod_collective():
