@@ -86,7 +86,11 @@ Phases, each printing its own line; any failure exits non-zero:
                   the step's seconds beside the roofline times; (b) a
                   reduced HFL state restored onto a one-rank ``cuda``
                   DeviceMesh with the HFL placements, bitwise; no K1-K5
-                  launch;
+                  launch in (a) and (b); (c) the one-rank dry runs of
+                  phase 9's kernel-route prefills (K4 and K5 traced as
+                  custom ops over meta tensors) against the same prefill
+                  on the card, which launches K4 48 times and K5 twice:
+                  matmul FLOPs equal, peak within DRY_PEAK_BAR;
 and then the ``kernels`` JSON line, the card's name and power limit, and
 the result line. Each path runs with every launch count set to 0 just
 before it and read just after. Details go to
@@ -1408,17 +1412,32 @@ def train_phase(torch, reset_counts, read_counts):
 
 # Phase 11: the dry run of phase 10's per-cluster step on a one-rank mesh
 # against the same step on the card (peak bar: the predicted peak within
-# this share of max_memory_allocated), and the sharded restore. The
-# production dry runs (256 and 512 fake ranks) are not run here: torch
-# 2.11's DTensor cannot shard the port's steps (no strided shards, no
-# [Shard(0), Shard(0)] rule for indexing, no rule for flip). The dry run
-# itself runs over meta tensors in a process of its own, where no kernel
-# can launch (the wrappers refuse tensors without storage); the launch
-# counts of the kernels line (phase11_card_launches) are those of the
-# card's step and restore.
+# this share of max_memory_allocated), the same for phase 9's two
+# kernel-route prefills (K4 and K5 are custom ops: the dry run traces
+# them through their fake implementations over meta tensors, in a process
+# of its own, and bills each by the reference grid's products; the card
+# side launches them, and those launches are the kernels line's
+# phase11_launches), and the sharded restore. The production dry runs
+# (256 and 512 fake ranks) are not run here: torch 2.11's DTensor cannot
+# shard the port's steps (ROADMAP section 3 lists its refusals;
+# tools/dryrun_probe.py asks again).
 DRY_ARCH, DRY_SHAPE = "mamba2-1.3b", ("chip_train", 1024, 4, "train")
 DRY_PEAK_BAR = 0.10
 DRY_TIMEOUT_S = 300
+
+DRY_PREFILL = """
+import dataclasses, json
+from repro_torch.configs import InputShape, get_config
+from repro_torch.launch import dryrun as D
+cfg = dataclasses.replace(get_config(%(arch)r), compute_dtype="bfloat16",
+                          **%(impl)r)
+if %(n_layers)d:
+    cfg = dataclasses.replace(cfg, n_layers=%(n_layers)d)
+rec = D.run_one(%(arch)r, InputShape("chip_prefill", %(plen)d, %(batch)d,
+                                     "prefill"), "local", cfg=cfg,
+                mesh_shape=(1, 1))
+print(json.dumps(rec))
+"""
 
 DRY_ONE_RANK = """
 import dataclasses, json, sys
@@ -1466,7 +1485,13 @@ def dryrun_phase(torch, reset_counts, read_counts):
     the step's seconds (a second run, without the analyzer) beside the
     roofline times; (b) a reduced HFL state saved on the card and restored
     onto a one-rank ``cuda`` DeviceMesh with the HFL placements, every
-    local shard bitwise equal to the CPU restore."""
+    local shard bitwise equal to the CPU restore; (c) the one-rank dry
+    runs of phase 9's kernel-route prefills (``SERVE_RUNS``: mamba2-1.3b
+    through K4, mixtral-8x22b at 2 layers through K5; started first, in
+    processes of their own) against the same prefill on the card under
+    the analyzer: matmul FLOPs equal (each kernel op billed by the same
+    formula on both sides), the peak within DRY_PEAK_BAR, one launch of
+    the kernel a layer on the card."""
     import tempfile
 
     import torch.distributed as dist
@@ -1485,6 +1510,9 @@ def dryrun_phase(torch, reset_counts, read_counts):
     t0 = time.perf_counter()
     one_rank = _spawn([sys.executable, "-c", DRY_ONE_RANK % {
         "arch": DRY_ARCH, "shape": DRY_SHAPE}])
+    prefills = {name: _spawn([sys.executable, "-c", DRY_PREFILL % {
+        "arch": name, "plen": plen, "n_layers": n_layers, "impl": impl,
+        "batch": SERVE_BATCH}]) for name, plen, n_layers, impl in SERVE_RUNS}
 
     # (a) the same step on the card, under the analyzer, then timed
     cfg = dataclasses.replace(get_config(DRY_ARCH),
@@ -1544,6 +1572,17 @@ def dryrun_phase(torch, reset_counts, read_counts):
     counts = read_counts()
     del hstate, sharded, plain, pairs
 
+    # (c) the kernel-route prefills on the card against their dry runs
+    out["kernel_routes"] = {}
+    phase_launches = [0] * 7
+    for name, plen, n_layers, impl in SERVE_RUNS:
+        rec = kernel_route_prefill(torch, name, plen, n_layers, impl,
+                                   prefills[name], reset_counts,
+                                   read_counts)
+        out["kernel_routes"][name] = rec
+        phase_launches = [a + b for a, b in zip(phase_launches,
+                                                rec["launches"])]
+
     dry = json.loads(_collect(one_rank, "one-rank dry run").splitlines()[-1])
     if dry["status"] != "ok":
         raise AssertionError(f"[11 dry run] one-rank dry run: {dry}")
@@ -1585,6 +1624,7 @@ def dryrun_phase(torch, reset_counts, read_counts):
           f"bitwise equal to the CPU restore: {restore_equal}; launches "
           f"K1-K5 {list(counts)}; phase {phase_s:.1f} s")
     out["launches"] = list(counts)
+    out["phase_launches"] = phase_launches
     out["phase_s"] = phase_s
     if dry["op_matmul_flops_per_dev"] != card.matmul_flops \
             or peak_err > DRY_PEAK_BAR or not restore_equal \
@@ -1594,6 +1634,89 @@ def dryrun_phase(torch, reset_counts, read_counts):
             f"{card.matmul_flops}, peak rel {peak_err}, restore equal "
             f"{restore_equal}, launches {counts}")
     return out
+
+
+def kernel_route_prefill(torch, name, plen, n_layers, impl, proc,
+                         reset_counts, read_counts):
+    """Phase 11 (c): one prefill of ``serve_config(name, n_layers,
+    impl)`` (batch SERVE_BATCH x ``plen``, bfloat16) on the card under
+    ``OpAnalyzer("cuda")``, launches counted, against the one-rank dry run
+    of the same step that ``proc`` prints."""
+    from repro_torch.configs import InputShape
+    from repro_torch.launch import dryrun as D
+    from repro_torch.launch import specs as LS
+    from repro_torch.launch.op_analysis import OpAnalyzer
+    from repro_torch.models import model as M
+    from repro_torch.optim.optimizers import tree_leaves
+    from repro_torch.train import steps as ST
+    cfg = serve_config(name, n_layers, impl)
+    shape = InputShape("chip_prefill", plen, SERVE_BATCH, "prefill")
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    params = M.init_params(cfg, torch.Generator("cuda").manual_seed(0),
+                           device="cuda")
+    batch = LS.concrete_inputs(cfg, shape, torch.Generator().manual_seed(1),
+                               device="cuda")["batch"]
+    # the dry run's prefill: the step's body under no_grad (in inference
+    # mode the analyzer would see matmul and einsum undecomposed)
+    step = D._no_grad(ST.make_prefill_step(cfg))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    an = OpAnalyzer("cuda")
+    an.track(tree_leaves((params, batch)))
+    reset_counts()
+    t0 = time.perf_counter()
+    with an:
+        logits, cache = step(params, batch)
+    torch.cuda.synchronize()
+    step_s = time.perf_counter() - t0
+    counts = read_counts()
+    card_peak = torch.cuda.max_memory_allocated() - base
+    finite = bool(torch.isfinite(logits).all())
+    del logits, cache, params, batch
+    torch.cuda.empty_cache()
+    card = an.stats()
+    dry = json.loads(_collect(proc, f"{name} prefill dry run"
+                              ).splitlines()[-1])
+    if dry["status"] != "ok":
+        raise AssertionError(f"[11 dry run {name}] {dry}")
+    pred = dry["mem_peak_bytes_per_dev"]
+    peak_err = abs(pred - card_peak) / card_peak
+    k4 = name.startswith("mamba")
+    want = ((0, 0, 0, cfg.n_layers, 0, 0, cfg.n_layers) if k4
+            else (0, 0, 0, 0, cfg.n_layers, cfg.n_layers, 0))
+    rec = {"arch": name, "n_layers": cfg.n_layers, "prompt_len": plen,
+           "batch": SERVE_BATCH, **impl, "dry": dry,
+           "card": {"matmul_flops": card.matmul_flops, "flops": card.flops,
+                    "bytes": card.bytes, "kernel_flops": card.kernel_flops,
+                    "kernel_calls": card.kernel_calls,
+                    "analyzer_peak_bytes": card.peak_bytes,
+                    "max_memory_allocated_bytes": card_peak,
+                    "step_s": step_s, "finite": finite},
+           "peak_rel_err": peak_err, "launches": list(counts)}
+    print(f"[11 dry run {name}] prefill {SERVE_BATCH} x {plen}, "
+          f"{cfg.n_layers} layers, bf16, {impl}: dry run (1 x 1 fake mesh, "
+          f"{dry['trace_s']} s) matmul FLOPs "
+          f"{dry['op_matmul_flops_per_dev']:.6e} vs the card's "
+          f"{card.matmul_flops:.6e} (equal: "
+          f"{dry['op_matmul_flops_per_dev'] == card.matmul_flops}); kernel "
+          f"ops billed {dry['op_kernel_flops_per_dev']} vs "
+          f"{card.kernel_flops}; predicted peak {pred / 2 ** 30:.3f} GiB vs "
+          f"max_memory_allocated {card_peak / 2 ** 30:.3f} GiB (rel "
+          f"{peak_err:.4f}, bar {DRY_PEAK_BAR}); step {step_s:.4f} s under "
+          f"the analyzer; launches K1-K5, K5 tensor-core, K4 tensor-core "
+          f"{list(counts)}; logits finite {finite}")
+    if dry["op_matmul_flops_per_dev"] != card.matmul_flops \
+            or dry["op_kernel_flops_per_dev"] != card.kernel_flops \
+            or peak_err > DRY_PEAK_BAR or counts != want or not finite:
+        raise AssertionError(
+            f"phase 11 {name}: matmul FLOPs {dry['op_matmul_flops_per_dev']}"
+            f" vs {card.matmul_flops}, kernel ops "
+            f"{dry['op_kernel_flops_per_dev']} vs {card.kernel_flops}, peak "
+            f"rel {peak_err}, launches {counts} (want {want}), finite "
+            f"{finite}")
+    return rec
 
 
 def records_equal(a, b, accuracy=True):
@@ -2253,7 +2376,7 @@ def main() -> int:
     t0 = time.perf_counter()
     report["dryrun"] = dryrun_phase(torch, reset_counts, read_counts)
     report["dryrun_s"] = time.perf_counter() - t0
-    dry_launches = report["dryrun"]["launches"]
+    dry_launches = report["dryrun"]["phase_launches"]
     train_launches = report["train"]["hfl"]["launches"]
     k4_main = report["serve"]["mamba2-1.3b"]["launches"][3]
     k4_tc_main = report["serve"]["mamba2-1.3b"]["launches"][6]
@@ -2262,7 +2385,7 @@ def main() -> int:
     kernels = [{
         "name": "quant_agg_stacked",
         "train_launches": train_launches[0],
-        "phase11_card_launches": dry_launches[0],
+        "phase11_launches": dry_launches[0],
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/quant_agg.cu",
         "replaces": "src/repro/kernels/quant_agg.py:100",
@@ -2285,7 +2408,7 @@ def main() -> int:
     }, {
         "name": "trimmed_agg_stacked",
         "train_launches": train_launches[1],
-        "phase11_card_launches": dry_launches[1],
+        "phase11_launches": dry_launches[1],
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/trimmed_agg.cu",
         "replaces": "src/repro/kernels/trimmed_agg.py:79",
@@ -2312,7 +2435,7 @@ def main() -> int:
     }, {
         "name": "quant_agg",
         "train_launches": train_launches[2],
-        "phase11_card_launches": dry_launches[2],
+        "phase11_launches": dry_launches[2],
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/quant_agg.cu",
         "replaces": "src/repro/kernels/quant_agg.py:53",
@@ -2335,7 +2458,7 @@ def main() -> int:
     }, {
         "name": "ssd_chunk",
         "train_launches": train_launches[3],
-        "phase11_card_launches": dry_launches[3],
+        "phase11_launches": dry_launches[3],
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/ssd_scan_tc.cu",
         "cuda_core_source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
@@ -2363,7 +2486,7 @@ def main() -> int:
     }, {
         "name": "swa_attention",
         "train_launches": train_launches[4],
-        "phase11_card_launches": dry_launches[4],
+        "phase11_launches": dry_launches[4],
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/swa_attention_tc.cu",
         "cuda_core_source": "src/repro_torch/kernels/csrc/swa_attention.cu",

@@ -29,20 +29,6 @@ _LIBS: Dict[str, ctypes.CDLL] = {}
 build_log: Dict[str, str] = {}
 
 
-def require_storage(name: str, *tensors) -> None:
-    """Raise ``ValueError`` if a tensor has no storage (``meta``, or fake
-    under ``FakeTensorMode``, DTensors over either included): a kernel is
-    handed data pointers, which such a tensor does not have. Checked
-    before any build or launch."""
-    from torch._subclasses.fake_tensor import is_fake
-    for t in tensors:
-        if t.is_meta or is_fake(t):
-            raise ValueError(
-                f"{name}: a {'meta' if t.is_meta else 'fake'} tensor has no "
-                "storage to launch a kernel on; trace the plain route "
-                "(attn_impl / ssm_impl) instead")
-
-
 def nvcc() -> str:
     """The CUDA compiler: ``nvcc`` on PATH, else ``$CUDA_HOME/bin/nvcc``
     (``CUDA_HOME`` defaults to the toolkit's usual ``/usr/local/cuda``)."""

@@ -25,7 +25,12 @@ h // (h / g). The inter-chunk recurrence stays framework code
 The device decides the route, with no fallback: a CUDA tensor launches the
 kernel (or raises), a CPU tensor takes ``ssd_chunk_plain``, the plain
 version that mirrors the reference oracle
-``src/repro/kernels/ref.py::ssd_chunk_ref``.
+``src/repro/kernels/ref.py::ssd_chunk_ref``. The route is the custom op
+``torch.ops.repro_torch.ssd_chunk`` (``kernels/_custom.py``): its fake
+implementation gives meta and fake tensors the two outputs' shapes, so
+the dry run traces this route; its DTensor rule passes batch, chunk and
+head shards through, with B and C replicated over a head shard when
+there is one group and sharded like the heads when the groups divide.
 """
 from __future__ import annotations
 
@@ -33,7 +38,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, _custom
 
 #: kernel launches made by :func:`ssd_chunk` in this process, both
 #: instances
@@ -128,14 +133,69 @@ def _check(x, dt, A, B, C):
 def ssd_chunk(x, dt, A, B, C):
     """(y_diag, states) of the SSD intra-chunk stage; see the module
     docstring. CUDA tensors launch the kernel; CPU tensors take the plain
-    version; meta and fake tensors raise ``ValueError``."""
+    version; meta and fake tensors get the outputs' shapes."""
     _check(x, dt, A, B, C)
-    _build.require_storage("ssd_chunk", x, dt, A, B, C)
-    if x.device.type == "cpu":
-        return ssd_chunk_plain(x, dt, A, B, C)
-    if x.device.type != "cuda":
-        raise ValueError(f"ssd_chunk: no route for device {x.device}")
+    return torch.ops.repro_torch.ssd_chunk(x, dt, A, B, C)
+
+
+@torch.library.custom_op("repro_torch::ssd_chunk", mutates_args=())
+def _ssd_chunk_op(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                  B: torch.Tensor, C: torch.Tensor
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
+    raise ValueError(f"ssd_chunk: no route for device {x.device}")
+
+
+@_ssd_chunk_op.register_kernel("cpu")
+def _(x, dt, A, B, C):
+    return ssd_chunk_plain(x, dt, A, B, C)
+
+
+@_ssd_chunk_op.register_kernel("cuda")
+def _(x, dt, A, B, C):
     return _launch(x, dt, A, B, C)
+
+
+@_ssd_chunk_op.register_fake
+def _(x, dt, A, B, C):
+    b, nc, c, h, p = x.shape
+    return (x.new_empty((b, nc, c, h, p)),
+            x.new_empty((b, nc, h, p, B.shape[4])))
+
+
+_custom.plain_backward(_ssd_chunk_op, ssd_chunk_plain, 5)
+
+
+def _sharding(x, dt, A, B, C):
+    """One mesh dim's placements, (y_diag, states) then (x, dt, A, B, C):
+    replicated; batch or chunk shards, which every operand shares; head
+    shards, with A's heads and B, C replicated (one group, which every
+    head reads) or sharded by group (the groups split as the heads do)."""
+    from torch.distributed.tensor import Replicate, Shard
+    R = Replicate()
+    rules = [([R, R], [R, R, R, R, R])]
+    for d in (0, 1):
+        rules.append(([Shard(d), Shard(d)], [Shard(d), Shard(d), R,
+                                             Shard(d), Shard(d)]))
+    g = Shard(3) if B.shape[3] > 1 else R
+    rules.append(([Shard(3), Shard(2)], [Shard(3), Shard(3), Shard(0), g,
+                                         g]))
+    return rules
+
+
+def chunk_flops(x, B):
+    """The matmul FLOPs of the reference kernel's grid on x (b, nc, c, h,
+    p) and B (b, nc, c, g, n): per (batch, chunk, head), C·Bᵀ (c x n x
+    c), (C·Bᵀ ∘ L ∘ dt)·x (c x c x p) and the chunk state (p x c x n), 2
+    FLOPs a multiply-add each, as the products of ``ssd_chunk_plain``."""
+    b, nc, c, h, p = x.shape
+    n = B.shape[4]
+    return 2.0 * b * nc * h * c * (c * n + c * p + p * n)
+
+
+def register_sharding():
+    """K4's DTensor sharding rule (:func:`_sharding`), registered once."""
+    _custom.register_sharding(torch.ops.repro_torch.ssd_chunk.default,
+                              _sharding)
 
 
 def _launch(x, dt, A, B, C, instance=None):

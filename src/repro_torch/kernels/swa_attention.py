@@ -22,15 +22,22 @@ over the key tiles of the band only, with the output in q's type:
 The device decides the route, with no fallback: a CUDA tensor launches the
 kernel (or raises), a CPU tensor takes ``swa_attention_plain``, the plain
 version that mirrors the reference oracle
-``src/repro/kernels/ref.py::swa_attention_ref``.
+``src/repro/kernels/ref.py::swa_attention_ref``. The route is the custom op
+``torch.ops.repro_torch.swa_attention`` (``kernels/_custom.py``): its fake
+implementation gives meta and fake tensors q's shape, so the dry run
+traces this route; its DTensor rule passes batch shards through and head
+shards where the kv heads split as the q heads do (or there is one kv
+head). :func:`visited_blocks` counts the (q block, k block) pairs that the
+reference's Pallas grid computes, which the dry run bills.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, _custom
 
 #: kernel launches made by :func:`swa_attention` in this process, both
 #: instances
@@ -119,14 +126,90 @@ def _check(q, k, v, window):
 def swa_attention(q, k, v, window=0, causal=True):
     """Sliding-window (``window`` > 0) or full attention, causal or not;
     see the module docstring. CUDA tensors launch the kernel; CPU tensors
-    take the plain version; meta and fake tensors raise ``ValueError``."""
+    take the plain version; meta and fake tensors get q's shape."""
     _check(q, k, v, window)
-    _build.require_storage("swa_attention", q, k, v)
-    if q.device.type == "cpu":
-        return swa_attention_plain(q, k, v, window, causal)
-    if q.device.type != "cuda":
-        raise ValueError(f"swa_attention: no route for device {q.device}")
-    return _launch(q, k, v, int(window), bool(causal))
+    return torch.ops.repro_torch.swa_attention(q, k, v, int(window),
+                                               bool(causal))
+
+
+@torch.library.custom_op("repro_torch::swa_attention", mutates_args=())
+def _swa_attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      window: int, causal: bool) -> torch.Tensor:
+    raise ValueError(f"swa_attention: no route for device {q.device}")
+
+
+@_swa_attention_op.register_kernel("cpu")
+def _(q, k, v, window, causal):
+    return swa_attention_plain(q, k, v, window, causal)
+
+
+@_swa_attention_op.register_kernel("cuda")
+def _(q, k, v, window, causal):
+    return _launch(q, k, v, window, causal)
+
+
+@_swa_attention_op.register_fake
+def _(q, k, v, window, causal):
+    return q.new_empty(q.shape)
+
+
+_custom.plain_backward(_swa_attention_op, swa_attention_plain, 3)
+
+
+def _sharding(q, k, v, window, causal):
+    """One mesh dim's placements, out then (q, k, v, window, causal):
+    replicated; batch shards; head shards, k and v split by kv head (the
+    GQA groups then divide: a mesh dim that does not divide the kv heads
+    is dropped by DTensor, and the heads are gathered first) or, with one
+    kv head, replicated. The sequence is never split."""
+    from torch.distributed.tensor import Replicate, Shard
+    R = Replicate()
+    kv = Shard(2) if k.shape[2] > 1 else R
+    return [([R], [R, R, R, None, None]),
+            ([Shard(0)], [Shard(0), Shard(0), Shard(0), None, None]),
+            ([Shard(2)], [Shard(2), kv, kv, None, None])]
+
+
+def register_sharding():
+    """K5's DTensor sharding rule (:func:`_sharding`), registered once."""
+    _custom.register_sharding(torch.ops.repro_torch.swa_attention.default,
+                              _sharding)
+
+
+#: the reference kernel's q and k block (``bq``, ``bk`` of
+#: ``src/repro/kernels/swa_attention.py::swa_attention``)
+REF_BLOCK = 128
+
+
+@functools.lru_cache(maxsize=None)
+def visited_blocks(l, window, causal, block=REF_BLOCK):
+    """(q block, k block) pairs of an ``l``-row sequence whose product the
+    reference's Pallas grid computes (its ``pl.when(needed)``): blocks of
+    ``min(block, l)`` rows, a pair skipped when no key of the k block is
+    visible from the q block."""
+    bq = bk = min(block, l)
+    n_q, n_kv = -(-l // bq), -(-l // bk)
+    total = 0
+    for qi in range(n_q):
+        hi = n_kv - 1
+        if causal:
+            hi = min(hi, (qi * bq + bq - 1) // bk)
+        lo = 0
+        if window:
+            # k_start + bk - 1 > q_start - window
+            lo = max(0, (qi * bq - window - bk + 1) // bk + 1)
+        total += max(0, hi - lo + 1)
+    return total
+
+
+def band_flops(q, k, window, causal):
+    """The matmul FLOPs of the reference kernel's grid on q (B, L, H, hd):
+    q·kᵀ and p·v, 2·bq·bk·hd each, over every visited block pair of every
+    (batch, head)."""
+    b, l, h, hd = q.shape
+    bq = min(REF_BLOCK, l)
+    return 4.0 * b * h * visited_blocks(l, int(window), bool(causal)) \
+        * bq * bq * hd
 
 
 def _launch(q, k, v, window, causal):

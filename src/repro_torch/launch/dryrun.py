@@ -17,17 +17,23 @@ device type is the traced device's: ``cuda`` by default (the card's
 program, no card needed: the shards are meta) or ``cpu``
 (``--device cpu``). Plain tensors the model makes on the fly (rope
 tables, masks, positions) meet the DTensors as replicated
-(``implicit_replication``). DTensor places each op by itself; two modes
-make its per-rank program the one the rules plan, as XLA's partitioner
-does from the whole step: ``FsdpGather`` gathers a weight's ``data``
-(FSDP storage) shard before each product and lookup, and
-``PartitionerPlacements`` keeps ``new_zeros`` sharded and gathers a dim
-before a view splits it unevenly. ``tests/test_torch_dryrun.py`` holds
-the per-rank matmul FLOPs and peak against the one-rank trace of the same
-step and against the JAX package's compiled program on a (4, 2) mesh.
-The kernel routes (``attn_impl="flash"``,
-``ssm_impl="pallas"``) hand data pointers to their kernels and cannot be
-traced: such a run is recorded as an error.
+(``implicit_replication``). DTensor places each op by itself; three
+modes make its per-rank program the one XLA's partitioner makes from the
+whole step: ``FsdpGather`` gathers a weight's ``data`` (FSDP storage)
+shard before each product and lookup (a decode step's embedding table
+stays sharded and its rows move), ``HeadRepeat`` keeps a group repeated
+out to the heads sharded over ``model``, and ``PartitionerPlacements``
+keeps ``new_zeros`` sharded, gathers a dim before a view splits it
+unevenly, reduces partial sums before a product, splits a product that
+would be repeated on every ``model`` rank, and writes the decode cache
+on each rank's own rows. ``tests/test_torch_dryrun.py`` holds the
+per-rank matmul FLOPs, peak and link bytes against the one-rank trace of
+the same step and against the JAX package's compiled program on a (4, 2)
+mesh. The kernel routes (``attn_impl="flash"``, ``ssm_impl="pallas"``)
+trace: K4 and K5 are custom ops (``kernels/_custom.py``) whose fake
+implementations give meta shards their outputs' shapes, whose DTensor
+rules keep batch and head shards, and which the analyzer bills by the
+reference kernels' grids.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch all \\
@@ -56,6 +62,8 @@ from torch.utils._python_dispatch import TorchDispatchMode
 
 from repro_torch.configs import ARCH_IDS, INPUT_SHAPES, get_config
 from repro_torch.core import hierarchy as H
+from repro_torch.kernels import ssd_scan as K4
+from repro_torch.kernels import swa_attention as K5
 from repro_torch.launch import specs as S
 from repro_torch.launch.mesh import make_local_mesh, make_production_mesh
 from repro_torch.launch.op_analysis import OpAnalyzer
@@ -225,7 +233,12 @@ class FsdpGather(TorchFunctionMode):
     ``bmm``, ``linear``) or a lookup (``table[indices]``) that comes from
     ``weights`` (by storage, through casts, views and slices) is gathered
     over the ``fsdp`` mesh dims first. Autograd reduce-scatters its
-    gradient back to the storage placements."""
+    gradient back to the storage placements. The embedding ``tables``
+    are the exception when fewer values meet them than they hold (a
+    decode step's tokens): a lookup gathers the indices and moves the rows
+    to the indices' shards, and the unembedding keeps the table's shards
+    (DTensor moves the activations), as XLA does; gathering mamba2's
+    table for 128 tokens held 1.2 GiB a rank at ``decode_32k``."""
 
     _PRODUCTS = {torch.matmul, torch.Tensor.matmul, torch.bmm,
                  torch.Tensor.bmm, torch.mm, torch.Tensor.mm,
@@ -237,23 +250,49 @@ class FsdpGather(TorchFunctionMode):
               torch.Tensor.unbind, torch.unbind, torch.Tensor.detach,
               torch.Tensor.requires_grad_, torch.Tensor.__getitem__}
 
-    def __init__(self, weights, fsdp):
+    def __init__(self, weights, fsdp, tables=()):
         super().__init__()
-        # storage address -> weakref: an address is dropped when its
-        # storage is freed, before a new storage can take it
+        # storage address -> (weakref, is a table): an address is dropped
+        # when its storage is freed, before a new storage can take it
         self._w = {}
         self._fsdp = tuple(fsdp)
+        tables = {_storage(t)._cdata for t in tables}
         for t in weights:
-            self._mark(t)
+            self._mark(t, _storage(t)._cdata in tables)
 
-    def _mark(self, t):
+    def _mark(self, t, table):
         st = _storage(t)
         key = st._cdata
-        self._w[key] = weakref.ref(st, lambda _, k=key: self._w.pop(k, None))
+        self._w[key] = (weakref.ref(st, lambda _, k=key: self._w.pop(k, None)),
+                        table)
 
     def _is_weight(self, t):
         from torch.distributed.tensor import DTensor
         return isinstance(t, DTensor) and _storage(t)._cdata in self._w
+
+    def _is_table(self, t):
+        return self._is_weight(t) and self._w[_storage(t)._cdata][1]
+
+    def _fewer_rows(self, table, idx):
+        """A lookup of fewer values than the table holds (a decode step's
+        tokens): the table stays sharded and the rows move instead."""
+        from torch.distributed.tensor import DTensor
+        return self._is_table(table) and isinstance(idx, DTensor) \
+            and idx.numel() * table.shape[-1] < table.numel()
+
+    def _gathered(self, ops):
+        """A product's operands, the weights gathered, unless the weight is
+        a table and every other operand is smaller (the unembedding of a
+        decode step): then the table stays and DTensor moves the
+        activations."""
+        ops = tuple(ops)
+        w = [a for a in ops if self._is_weight(a)]
+        rest = [a.numel() for a in ops
+                if isinstance(a, torch.Tensor) and not self._is_weight(a)]
+        if w and rest and all(self._is_table(a) for a in w) \
+                and max(rest) < min(a.numel() for a in w):
+            return ops
+        return tuple(self._gather(a) for a in ops)
 
     def _gather(self, t):
         from torch.distributed.tensor import Replicate
@@ -270,20 +309,87 @@ class FsdpGather(TorchFunctionMode):
         kwargs = kwargs or {}
         lookup = func is torch.Tensor.__getitem__ and \
             isinstance(args[1], torch.Tensor)
+        if lookup and self._fewer_rows(*args[:2]):
+            return _rows_like(func(*args, **kwargs), args[1])
         if lookup:
             args = (self._gather(args[0]),) + tuple(args[1:])
         elif func is torch.einsum:
             ops = args[1] if len(args) == 2 and \
                 isinstance(args[1], (list, tuple)) else args[1:]
-            args = (args[0],) + tuple(self._gather(a) for a in ops)
+            args = (args[0],) + self._gathered(ops)
         elif func in self._PRODUCTS:
-            args = tuple(self._gather(a) for a in args)
+            args = self._gathered(args)
         out = func(*args, **kwargs)
         if func in self._CARRY and not lookup and self._is_weight(args[0]):
+            table = self._is_table(args[0])
             for t in (out if isinstance(out, (list, tuple)) else (out,)):
                 if isinstance(t, DTensor):
-                    self._mark(t)
+                    self._mark(t, table)
         return out
+
+
+class HeadRepeat(TorchFunctionMode):
+    """A group dim repeated out to the heads (``repeat_interleave(rep,
+    dim)``, SSD's B and C of one group) keeps its heads sharded over
+    ``model`` where the heads divide, as XLA's partitioner shards the
+    repeated dim (its C·Bᵀ of mamba2's ``prefill_32k`` is f32[32, 128, 4,
+    256, 256]: 4 of the 64 heads a device). DTensor would repeat a
+    replicated group to every head on every rank and compute each head's
+    product 16 times. Here a rank repeats only the groups of its own heads;
+    the gradient of the group sums over ``model``."""
+
+    _REPEAT = {torch.repeat_interleave, torch.Tensor.repeat_interleave}
+
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+        from torch.distributed.tensor import DTensor
+        kwargs = dict(kwargs or {})
+        if func in self._REPEAT and args and isinstance(args[0], DTensor):
+            x, rep = args[0], (args[1] if len(args) > 1
+                               else kwargs.get("repeats"))
+            dim = args[2] if len(args) > 2 else kwargs.get("dim")
+            if isinstance(rep, int) and isinstance(dim, int):
+                out = _local_repeat(x, rep, dim % x.ndim)
+                if out is not None:
+                    return out
+        return func(*args, **kwargs)
+
+
+def _local_repeat(x, rep, dim):
+    """``x.repeat_interleave(rep, dim)`` sharded over ``model`` on ``dim``
+    (rank 0's heads, from the groups they read), or None where ``x`` is
+    sharded there already or the heads do not divide."""
+    from torch.distributed.tensor import DTensor, Partial, Shard
+    mesh = x.device_mesh
+    names = tuple(mesh.mesh_dim_names or ())
+    if "model" not in names or any(p.is_shard(dim) for p in x.placements):
+        return None
+    i = names.index("model")
+    m, h = mesh.size(i), x.shape[dim] * rep
+    if m == 1 or not x.placements[i].is_replicate() or h % m:
+        return None
+    mine = h // m
+    local = x.to_local(grad_placements=[
+        Partial() if j == i else p for j, p in enumerate(x.placements)])
+    local = local.narrow(dim, 0, -(-mine // rep)).repeat_interleave(
+        rep, dim).narrow(dim, 0, mine)
+    shape = list(x.shape)
+    shape[dim] = h
+    from torch._prims_common import make_contiguous_strides_for
+    return DTensor.from_local(
+        local, mesh, [Shard(dim) if j == i else p
+                      for j, p in enumerate(x.placements)],
+        run_check=False, shape=torch.Size(shape),
+        stride=make_contiguous_strides_for(tuple(shape)))
+
+
+def _rows_like(rows, idx):
+    """Looked-up ``rows`` (DTensor's placement: the indices gathered, the
+    rows sharded by the table's columns) moved to the indices' batch
+    shards, whole rows on each rank."""
+    from torch.distributed.tensor import Replicate
+    pl = [p if p.is_shard() and p.dim < idx.ndim else Replicate()
+          for p in idx.placements]
+    return rows.redistribute(rows.device_mesh, pl)
 
 
 def _split_groups(src, dst):
@@ -314,9 +420,114 @@ def _split_groups(src, dst):
     return groups
 
 
+def _strided(p, dim):
+    from torch.distributed.tensor.placement_types import _StridedShard
+    return isinstance(p, _StridedShard) and p.dim == dim
+
+
+def _product_operands(func, args):
+    """A product's operands placed as XLA's partitioner places them:
+
+    * partial sums reduced (``Partial`` -> ``Replicate``), and a strided
+      shard of a contracted dim gathered (a view merged a sharded minor dim
+      into a major one, attention's hd into heads x hd: DTensor has no
+      product rule for such a shard and gathers the other operand, a whole
+      weight, instead);
+    * a product whose operands are both replicated over ``model``, which
+      every ``model`` rank would compute whole, split there: a batched
+      product (attention's, or an einsum's lm head) along its contraction
+      where ``model`` divides it (hd, or d_model: the result partial, as
+      XLA contracts mamba2's lm head over 128 of 2048), else along its
+      columns (N: heads x hd, or a vocab that ``model`` need not divide: a
+      rank then computes ceil(N / m) columns, as XLA pads N), else along
+      its contraction."""
+    from torch.distributed.tensor import DTensor, Replicate
+    lhs, rhs = (1, 2) if func in (torch.ops.aten.addmm.default,
+                                  torch.ops.aten.baddbmm.default) else (0, 1)
+    args = list(args)
+    for j, t in enumerate(args):
+        if not isinstance(t, DTensor):
+            continue
+        k = {lhs: t.ndim - 1, rhs: t.ndim - 2}.get(j, -1)
+        pl = [Replicate() if p.is_partial() or _strided(p, k) else p
+              for p in t.placements]
+        if pl != list(t.placements):
+            args[j] = t.redistribute(t.device_mesh, pl)
+    a, b = args[lhs], args[rhs]
+    if not (isinstance(a, DTensor) and isinstance(b, DTensor)):
+        return tuple(args)
+    names = tuple(b.device_mesh.mesh_dim_names or ())
+    if "model" not in names:
+        return tuple(args)
+    i = names.index("model")
+    m = b.device_mesh.size(i)
+    if m == 1 or not (a.placements[i].is_replicate()
+                      and b.placements[i].is_replicate()):
+        return tuple(args)
+    k, n = a._local_tensor.shape[-1], b._local_tensor.shape[-1]
+    if a.ndim == 3 and k % m == 0:
+        a, b = _shard_on(a, i, a.ndim - 1), _shard_on(b, i, b.ndim - 2)
+    elif n % m == 0 or n >= m:
+        b = _shard_on(b, i, b.ndim - 1)
+    elif k % m == 0:
+        a, b = _shard_on(a, i, a.ndim - 1), _shard_on(b, i, b.ndim - 2)
+    args[lhs], args[rhs] = a, b
+    return tuple(args)
+
+
+def _shard_on(t, i, dim):
+    """``t`` sharded on ``dim`` over mesh dim ``i`` (replicated there: a
+    local slice, no collective)."""
+    from torch.distributed.tensor import Shard
+    pl = list(t.placements)
+    pl[i] = Shard(dim)
+    return t.redistribute(t.device_mesh, pl)
+
+
+def _local_row_write(func, x, indices, values, accumulate=False):
+    """``index_put(x, (rows, slot), values)`` on each rank's shard, or None
+    where the write is not that pattern: ``rows`` is ``arange(x.shape[0])``
+    (the caller checks; row b goes to row b), ``slot`` and
+    ``values`` DTensors with one entry per row, and ``x`` not partial.
+    ``slot`` and ``values`` are redistributed to ``x``'s batch shards (and
+    ``values`` to its shards past the slot dim), and the write is the
+    local op; along a sharded slot dim (a long context's cache, its
+    sequence over ``data``) each rank writes the slots it holds."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    slot = indices[1]
+    b = x.shape[0]
+    if not (isinstance(slot, DTensor) and isinstance(values, DTensor)) \
+            or slot.shape != (b,) or values.ndim != x.ndim - 1 \
+            or values.shape[0] != b:
+        return None
+    slot_pl, val_pl = [], []
+    for p in x.placements:
+        # along a sharded slot dim the rank holding a slot writes it (XLA's
+        # masked update of each shard)
+        if p.is_replicate() or p.is_shard(1):
+            slot_pl.append(Replicate())
+            val_pl.append(Replicate())
+        elif p.is_shard(0):
+            slot_pl.append(Shard(0))
+            val_pl.append(Shard(0))
+        elif p.is_shard():
+            slot_pl.append(Replicate())
+            val_pl.append(Shard(p.dim - 1))
+        else:
+            return None
+    mesh = x.device_mesh
+    slot = slot.redistribute(mesh, slot_pl).to_local()
+    values = values.redistribute(mesh, val_pl).to_local()
+    local = x._local_tensor
+    rows = torch.arange(local.shape[0], device=local.device)
+    out = func(local, [rows, slot], values, accumulate)
+    return DTensor.from_local(out, mesh, x.placements, run_check=False,
+                              shape=x.shape, stride=x.stride())
+
+
 class PartitionerPlacements(TorchDispatchMode):
-    """Two places where DTensor's op-by-op placement departs from what a
-    partitioner of the whole step (XLA's) does, put right for the dry run:
+    """Where DTensor's op-by-op placement departs from what a partitioner
+    of the whole step (XLA's) does, put right for the dry run:
 
     * ``new_zeros`` on a DTensor gives a replicated tensor of the whole
       size, whatever the DTensor's sharding: gather's backward
@@ -328,14 +539,64 @@ class PartitionerPlacements(TorchDispatchMode):
       mesh dim does not divide (a projection's heads x hd output, sharded
       over 16 ranks, back into 40, 12 or 8 heads) has no DTensor rule.
       XLA pads such a dim; here the view's input is gathered over those
-      mesh dims first, so the heads after it are replicated there."""
+      mesh dims first, so the heads after it are replicated there.
+    * The decode cache write ``cache.index_put((arange(B), slot), new)``:
+      DTensor has no rule that keeps a batch-sharded cache sharded under
+      an index, so it gathers the whole cache (phi-3's ``decode_32k``
+      moved 474x the reference's link bytes). Row b of the batch
+      ``arange`` writes row b, so each rank writes its own rows
+      (:func:`_local_row_write`), as XLA's partitioner does.
+    * A product with a partial-sum operand: DTensor computes the whole
+      product on each rank's partial sums (mamba2's ``in_proj`` after the
+      first layer, whose input came partial from ``out_proj``: 3.47x the
+      reference's FLOPs at ``prefill_32k``); the sums are reduced first,
+      as XLA all-reduces a row-parallel output, and a product that every
+      ``model`` rank would compute whole is split there: an lm head whose
+      vocab 16 does not divide, attention over heads gathered for an
+      uneven view (:func:`_product_operands`)."""
+
+    _PRODUCTS = (torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+                 torch.ops.aten.addmm.default,
+                 torch.ops.aten.baddbmm.default)
+    _INDEX_PUT = torch.ops.aten.index_put.default
+    _ARANGE = (torch.ops.aten.arange.default, torch.ops.aten.arange.start,
+               torch.ops.aten.arange.start_step)
+
+    def __init__(self):
+        super().__init__()
+        # id of a meta tensor made by arange -> (weakref, (start, end,
+        # step)): the values a meta tensor does not hold
+        self._aranges = {}
+
+    def _is_arange(self, t, n):
+        """``t`` is a meta tensor that ``arange(n)`` made."""
+        ref, ends = self._aranges.get(id(t), (lambda: None, None))
+        return ref() is t and ends == (0, n, 1)
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         from torch.distributed.tensor import DTensor, Replicate
         kwargs = kwargs or {}
         x = args[0] if args else None
+        if func in self._ARANGE:
+            out = func(*args, **kwargs)
+            if out.is_meta:
+                a, key = tuple(args), id(out)
+                self._aranges[key] = (
+                    weakref.ref(out, lambda _: self._aranges.pop(key, None)),
+                    {1: (0, *a, 1), 2: (*a, 1)}.get(len(a), a[:3]))
+            return out
         if not isinstance(x, DTensor):
             return func(*args, **kwargs)
+        if func in self._PRODUCTS:
+            with torch.no_grad():
+                args = _product_operands(func, args)
+            return func(*args, **kwargs)
+        if func is self._INDEX_PUT and len(args[1]) == 2 \
+                and args[1][0] is not None \
+                and self._is_arange(args[1][0], x.shape[0]):
+            out = _local_row_write(func, x, *args[1:], **kwargs)
+            if out is not None:
+                return out
         if func is torch.ops.aten.new_zeros.default and \
                 len(args[1]) == x.ndim:
             size = tuple(args[1])
@@ -369,51 +630,55 @@ class PartitionerPlacements(TorchDispatchMode):
         return func(*args, **kwargs)
 
 
-def trace(fn, args, mesh=None, weights=(), fsdp=()):
+def trace(fn, args, mesh=None, weights=(), fsdp=(), tables=()):
     """Run ``fn(*args)`` once under the analyzer, its arguments counted
     live throughout (the caller holds them, as a trainer holds its state
     through a step), ``weights`` gathered over the ``fsdp`` mesh dims as
-    they are used. Returns the ``ModuleStats``."""
+    they are used (the embedding ``tables`` among them as
+    ``FsdpGather`` says). Returns the ``ModuleStats``."""
     from torch.distributed.tensor.experimental import implicit_replication
+    K4.register_sharding()
+    K5.register_sharding()
     an = OpAnalyzer("meta", mesh)
     an.track(tree_leaves(args))
     # PartitionerPlacements inside the analyzer: a mode that gives DTensor
     # ops back (the analyzer) hides them from the modes outside it
-    with implicit_replication(), FsdpGather(weights, fsdp), an, \
-            PartitionerPlacements():
+    with implicit_replication(), FsdpGather(weights, fsdp, tables), \
+            HeadRepeat(), \
+            an, PartitionerPlacements():
         out = fn(*args)
     del out
     return an.stats()
 
 
 def _fsdp_weights(params, mesh):
-    """(the weights a step gathers over ``data``, the ``data`` mesh dim):
-    every leaf but the experts'. An expert's product takes its tokens from
-    the dispatch buffer, which is not sharded by batch, so gathering the
-    expert over ``data`` would repeat the product on every ``data`` rank;
-    DTensor's own choice (the contraction over ``data``) is kept, and
-    under expert parallelism the ``data`` shard is the expert dim."""
+    """(the weights a step gathers over ``data``, the ``data`` mesh dim,
+    the embedding tables): every leaf but the experts'. An expert's
+    product takes its tokens from the dispatch buffer, which is not
+    sharded by batch, so gathering the expert over ``data`` would repeat
+    the product on every ``data`` rank; DTensor's own choice (the
+    contraction over ``data``) is kept, and under expert parallelism the
+    ``data`` shard is the expert dim."""
     out = []
     map_with_path(lambda path, t: None if "moe" in path and path[-1] in (
         "wi", "wg", "wo") else out.append(t), params)
-    return out, (tuple(mesh.mesh_dim_names).index("data"),)
+    tables = [params[k] for k in ("tok_embed", "unembed") if k in params]
+    return out, (tuple(mesh.mesh_dim_names).index("data"),), tables
 
 
 def analyze_step(cfg, shape, mesh, expert_parallel=False):
     """Trace ``cfg``'s step at ``shape`` on ``mesh`` over meta shards."""
     fn, args = build_step_and_args(cfg, shape, mesh, expert_parallel)
     params = args[0].params if shape.kind == "train" else args[0]
-    weights, fsdp = _fsdp_weights(params, mesh)
-    return trace(fn, args, mesh, weights, fsdp)
+    return trace(fn, args, mesh, *_fsdp_weights(params, mesh))
 
 
 def analyze_hfl(cfg, shape, mesh, quant_bits=0):
     """(local step stats, sync stats) of the hierarchical mode."""
     (fn, args), (sync_fn, sync_args) = build_hfl_steps_and_args(
         cfg, shape, mesh, quant_bits=quant_bits)
-    weights, fsdp = _fsdp_weights(
-        args[0].params, args[0].params["tok_embed"].device_mesh)
-    return (trace(fn, args, mesh, weights, fsdp),
+    return (trace(fn, args, mesh, *_fsdp_weights(
+        args[0].params, args[0].params["tok_embed"].device_mesh)),
             trace(sync_fn, sync_args, mesh))
 
 
@@ -465,6 +730,8 @@ def run_one(arch: str, shape_name, mesh_kind: str,
                 "trace_s": round(time.time() - t0, 2),
                 "op_flops_per_dev": ms.flops,
                 "op_matmul_flops_per_dev": ms.matmul_flops,
+                "op_kernel_flops_per_dev": ms.kernel_flops,
+                "op_kernel_calls": ms.kernel_calls,
                 "op_bytes_per_dev": ms.bytes,
                 "collective_bytes_per_dev": ms.collective_bytes,
                 "collective_link_bytes_per_dev": ms.collective_link_bytes,

@@ -12,6 +12,14 @@ offsets with CPU tensors; neither is the rank's program. It bills:
   * matmul FLOPs, 2 * M * N * K, for ``mm``, ``addmm``, ``bmm``,
     ``baddbmm`` and ``convolution`` (2 * output elements * the
     contraction);
+  * the kernel ops ``repro_torch::ssd_chunk`` (K4) and
+    ``repro_torch::swa_attention`` (K5) as matmul FLOPs too, by the
+    products that the reference's Pallas grid computes, the same formula
+    on meta tensors and on the card: K4 2·b·nc·h·c·(c·n + c·p + p·n)
+    (C·Bᵀ, (C·Bᵀ ∘ L ∘ dt)·x and the chunk state; equal to what this
+    analyzer bills for ``ssd_chunk_plain``'s products), K5 4·B·H·bq·bk·hd
+    over the (q block, k block) pairs of 128 rows that the kernel's
+    ``pl.when`` computes (q·kᵀ and p·v; not the whole l x l square);
   * elementwise FLOPs, one per output element of a pointwise op, as the
     reference bills one per output element of an XLA fusion;
   * bytes: the output buffers of materialising ops (views free; an
@@ -39,6 +47,9 @@ import torch
 from torch._subclasses.fake_tensor import FakeTensor
 from torch.utils._python_dispatch import TorchDispatchMode
 
+from repro_torch.kernels import ssd_scan as K4
+from repro_torch.kernels import swa_attention as K5
+
 COLLECTIVE_KINDS = ("all-gather", "all-reduce", "reduce-scatter",
                     "all-to-all", "collective-permute")
 
@@ -57,6 +68,13 @@ _FUNCOL = {
 _aten = torch.ops.aten
 _MATMUL = {_aten.mm.default, _aten.addmm.default, _aten.bmm.default,
            _aten.baddbmm.default, _aten.convolution.default}
+# the kernel ops: matmul FLOPs from the op's arguments
+_KERNEL = {
+    torch.ops.repro_torch.ssd_chunk.default:
+        lambda x, dt, A, B, C: K4.chunk_flops(x, B),
+    torch.ops.repro_torch.swa_attention.default:
+        lambda q, k, v, window, causal: K5.band_flops(q, k, window, causal),
+}
 # ops that hand back their input (or nothing new) without a view schema
 _FREE = {_aten.detach.default, _aten.alias.default,
          _aten.lift_fresh.default}
@@ -97,6 +115,10 @@ class ModuleStats:
     peak_bytes: int
     collectives_by_dim: Dict[str, int]
     n_ops: int
+    #: matmul FLOPs billed to each kernel op (``repro_torch::ssd_chunk``,
+    #: ``repro_torch::swa_attention``), and their calls
+    kernel_flops: Dict[str, float] = dataclasses.field(default_factory=dict)
+    kernel_calls: Dict[str, int] = dataclasses.field(default_factory=dict)
 
 
 def _nbytes(t) -> int:
@@ -148,6 +170,8 @@ class OpAnalyzer(TorchDispatchMode):
         self.bytes = 0.0
         self.n_ops = 0
         self.collectives: List[CollectiveStat] = []
+        self.kernel_flops: Dict[str, float] = {}
+        self.kernel_calls: Dict[str, int] = {}
         self._live: Dict[int, Tuple[weakref.ref, int]] = {}
         self._cur = 0
         self.peak = 0
@@ -201,11 +225,16 @@ class OpAnalyzer(TorchDispatchMode):
                     kind, nb, group.size(),
                     self._dims.get(group.group_name, ())))
                 self.bytes += nb
-        elif func in _MATMUL:
-            f = _matmul_flops(func, args, outs[0])
+        elif func in _MATMUL or func in _KERNEL:
+            f = (_KERNEL[func](*args) if func in _KERNEL
+                 else _matmul_flops(func, args, outs[0]))
+            if func in _KERNEL:
+                name = func._schema.name
+                self.kernel_flops[name] = self.kernel_flops.get(name, 0.0) + f
+                self.kernel_calls[name] = self.kernel_calls.get(name, 0) + 1
             self.flops += f
             self.matmul_flops += f
-            self.bytes += _nbytes(outs[0])
+            self.bytes += sum(_nbytes(t) for t in outs)
         elif not func.is_view and func not in _FREE:
             nb = sum(_nbytes(t) for t in outs)
             self.bytes += nb
@@ -226,4 +255,6 @@ class OpAnalyzer(TorchDispatchMode):
             bytes=self.bytes, collective_bytes=cb,
             collective_link_bytes=sum(c.link_bytes for c in self.collectives),
             n_collectives=len(self.collectives), peak_bytes=self.peak,
-            collectives_by_dim=by_dim, n_ops=self.n_ops)
+            collectives_by_dim=by_dim, n_ops=self.n_ops,
+            kernel_flops=dict(self.kernel_flops),
+            kernel_calls=dict(self.kernel_calls))
