@@ -1233,9 +1233,11 @@ def train_phase(torch, reset_counts, read_counts):
                                     device="cpu")
         batch = _smoke_batch(torch, cfg, 2, 32, seed=3)
         step = TS.make_train_step(cfg)
+        # the step consumes its state: the card's copy is made before
+        card_state = _to(state, "cuda")
         _, cpu = step(state, batch)
         reset_counts()
-        _, card = step(_to(state, "cuda"), _to(batch, "cuda"))
+        _, card = step(card_state, _to(batch, "cuda"))
         torch.cuda.synchronize()
         counts = read_counts()
         rel = {k: abs(float(card[k]) - float(cpu[k]))

@@ -76,18 +76,15 @@ def make_hfl_local_step(cfg, opt_cfg: AdamWConfig = AdamWConfig()):
 
     state leaves: (C, ...); batch: a list of C batches, one a cluster.
     Returns (state, metrics with a leading (C,) axis). The state is
-    updated in place, cluster by cluster (the reference donates it), so
-    the card holds one cluster's new state at a time beside the whole."""
+    updated in place, cluster by cluster (the reference donates it): the
+    train step writes each cluster's slice, a view of the state, in place,
+    so the card holds one leaf's new values at a time beside the whole."""
     step = make_train_step(cfg, opt_cfg)
 
     def local(state: TrainState, batches):
         per = []
         for c, batch in enumerate(batches):
-            new, m = step(cluster_slice(state, c), batch)
-            with torch.no_grad():
-                tree_map(lambda dst, src: dst.copy_(src),
-                         cluster_slice(state, c), new)
-            del new
+            _, m = step(cluster_slice(state, c), batch)
             per.append(m)
         metrics = {k: torch.stack([m[k] for m in per]) for k in per[0]}
         return state, metrics

@@ -238,7 +238,9 @@ class FsdpGather(TorchFunctionMode):
     decode step's tokens): a lookup gathers the indices and moves the rows
     to the indices' shards, and the unembedding keeps the table's shards
     (DTensor moves the activations), as XLA does; gathering mamba2's
-    table for 128 tokens held 1.2 GiB a rank at ``decode_32k``."""
+    table for 128 tokens held 1.2 GiB a rank at ``decode_32k``. The
+    recomputation of a rematerialised layer runs under this mode too
+    (:func:`remat_under`)."""
 
     _PRODUCTS = {torch.matmul, torch.Tensor.matmul, torch.bmm,
                  torch.Tensor.bmm, torch.mm, torch.Tensor.mm,
@@ -282,15 +284,20 @@ class FsdpGather(TorchFunctionMode):
 
     def _gathered(self, ops):
         """A product's operands, the weights gathered, unless the weight is
-        a table and every other operand is smaller (the unembedding of a
-        decode step): then the table stays and DTensor moves the
-        activations."""
+        a table that fewer rows meet than it has, so that the product is
+        smaller than the table (the unembedding of a decode step): then the
+        table stays and DTensor moves the activations. A train step's lm
+        head over 2 x 4096 tokens of d_model 8192 gathers the table, as XLA
+        does: kept sharded over ``data``, its logits came partial and were
+        gathered whole over the vocab (1.0e10 B a rank for qwen2-72b on
+        (2, 2, 16), 30% of the layer's peak)."""
         ops = tuple(ops)
         w = [a for a in ops if self._is_weight(a)]
-        rest = [a.numel() for a in ops
-                if isinstance(a, torch.Tensor) and not self._is_weight(a)]
-        if w and rest and all(self._is_table(a) for a in w) \
-                and max(rest) < min(a.numel() for a in w):
+        rows = [a.numel() // max(a.shape[-1], 1) for a in ops
+                if isinstance(a, torch.Tensor) and a.ndim
+                and not self._is_weight(a)]
+        if w and rows and all(self._is_table(a) for a in w) \
+                and max(rows) < min(a.shape[0] for a in w):
             return ops
         return tuple(self._gather(a) for a in ops)
 
@@ -420,6 +427,23 @@ def _split_groups(src, dst):
     return groups
 
 
+def _split_gathers(x, dim, lead, strided=False):
+    """The mesh dims of ``x``'s shards of ``dim`` to gather before a view
+    splits ``dim`` into factors whose first is ``lead``: the shards
+    (major to minor) past the longest run of plain ones whose sizes divide
+    ``lead``; with ``strided``, a strided shard too (a batch merged with a
+    sequence sharded over ``model`` and split again keeps its ``pod`` and
+    ``data`` shards and gathers ``model`` alone)."""
+    over = [i for i, p in enumerate(x.placements)
+            if p.is_shard(dim) or strided and _strided(p, dim)]
+    n = 1
+    for k, i in enumerate(over):
+        n *= x.device_mesh.size(i)
+        if _strided(x.placements[i], dim) or lead % n:
+            return over[k:]
+    return []
+
+
 def _strided(p, dim):
     from torch.distributed.tensor.placement_types import _StridedShard
     return isinstance(p, _StridedShard) and p.dim == dim
@@ -484,8 +508,21 @@ def _shard_on(t, i, dim):
     return t.redistribute(t.device_mesh, pl)
 
 
+def _softmax_grad_like(grad, out, dim):
+    """The softmax gradient ``grad`` placed as the softmax output ``out``
+    where ``out`` is sharded off the softmax dim: the backward then runs on
+    the forward's shards. DTensor gathered both whole where they differ
+    (attention's probabilities sharded by query over ``model``, their
+    gradient by key), holding every query's scores on each rank."""
+    dim %= out.ndim
+    if any(p.is_shard(dim) or p.is_partial() for p in out.placements):
+        return grad
+    return grad.redistribute(grad.device_mesh, out.placements)
+
+
 def _local_row_write(func, x, indices, values, accumulate=False):
-    """``index_put(x, (rows, slot), values)`` on each rank's shard, or None
+    """``index_put(x, (rows, slot), values)`` (or ``index_put_``, which
+    writes ``x`` in place and returns it) on each rank's shard, or None
     where the write is not that pattern: ``rows`` is ``arange(x.shape[0])``
     (the caller checks; row b goes to row b), ``slot`` and
     ``values`` DTensors with one entry per row, and ``x`` not partial.
@@ -521,6 +558,8 @@ def _local_row_write(func, x, indices, values, accumulate=False):
     local = x._local_tensor
     rows = torch.arange(local.shape[0], device=local.device)
     out = func(local, [rows, slot], values, accumulate)
+    if func._schema.is_mutable:
+        return x
     return DTensor.from_local(out, mesh, x.placements, run_check=False,
                               shape=x.shape, stride=x.stride())
 
@@ -537,10 +576,12 @@ class PartitionerPlacements(TorchDispatchMode):
       on the dims whose size they share with it.
     * A view that splits a sharded dim into factors whose first one the
       mesh dim does not divide (a projection's heads x hd output, sharded
-      over 16 ranks, back into 40, 12 or 8 heads) has no DTensor rule.
-      XLA pads such a dim; here the view's input is gathered over those
-      mesh dims first, so the heads after it are replicated there.
-    * The decode cache write ``cache.index_put((arange(B), slot), new)``:
+      over 16 ranks, back into 40, 12 or 8 heads), or one sharded by a
+      strided shard, has no DTensor rule. XLA pads such a dim; here the
+      view's input is gathered over those mesh dims first
+      (:func:`_split_gathers`), so the heads after it are replicated
+      there.
+    * The decode cache write ``cache.index_put_((arange(B), slot), new)``:
       DTensor has no rule that keeps a batch-sharded cache sharded under
       an index, so it gathers the whole cache (phi-3's ``decode_32k``
       moved 474x the reference's link bytes). Row b of the batch
@@ -553,14 +594,22 @@ class PartitionerPlacements(TorchDispatchMode):
       as XLA all-reduces a row-parallel output, and a product that every
       ``model`` rank would compute whole is split there: an lm head whose
       vocab 16 does not divide, attention over heads gathered for an
-      uneven view (:func:`_product_operands`)."""
+      uneven view (:func:`_product_operands`).
+    * Softmax's backward with its gradient sharded otherwise than its
+      output (attention's probabilities by query, their gradient by key,
+      over ``model``): DTensor gathered both, every query's scores whole on
+      each rank (4.4 copies: 3.837e10 B a rank for one full-width qwen2-72b
+      layer on (2, 2, 16), against the reference's 8.79e9). The gradient
+      is moved to the output's shards first (:func:`_softmax_grad_like`)."""
 
     _PRODUCTS = (torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
                  torch.ops.aten.addmm.default,
                  torch.ops.aten.baddbmm.default)
-    _INDEX_PUT = torch.ops.aten.index_put.default
+    _INDEX_PUT = (torch.ops.aten.index_put.default,
+                  torch.ops.aten.index_put_.default)
     _ARANGE = (torch.ops.aten.arange.default, torch.ops.aten.arange.start,
                torch.ops.aten.arange.start_step)
+    _SOFTMAX_BACKWARD = torch.ops.aten._softmax_backward_data.default
 
     def __init__(self):
         super().__init__()
@@ -591,12 +640,18 @@ class PartitionerPlacements(TorchDispatchMode):
             with torch.no_grad():
                 args = _product_operands(func, args)
             return func(*args, **kwargs)
-        if func is self._INDEX_PUT and len(args[1]) == 2 \
+        if func in self._INDEX_PUT and len(args[1]) == 2 \
                 and args[1][0] is not None \
                 and self._is_arange(args[1][0], x.shape[0]):
             out = _local_row_write(func, x, *args[1:], **kwargs)
             if out is not None:
                 return out
+        if func is self._SOFTMAX_BACKWARD and isinstance(args[1], DTensor) \
+                and args[0].placements != args[1].placements:
+            with torch.no_grad():
+                args = (_softmax_grad_like(args[0], args[1], args[2]),) \
+                    + tuple(args[1:])
+            return func(*args, **kwargs)
         if func is torch.ops.aten.new_zeros.default and \
                 len(args[1]) == x.ndim:
             size = tuple(args[1])
@@ -611,23 +666,98 @@ class PartitionerPlacements(TorchDispatchMode):
             if -1 in size:
                 k = size.index(-1)
                 size[k] = x.numel() // -math.prod(size)
-            gather = set()
-            for src, dst in _split_groups(tuple(x.shape), size):
-                dst = [d for d in dst if size[d] > 1]
-                if len(src) != 1 or len(dst) < 2:
-                    continue
-                over = [i for i, p in enumerate(x.placements)
-                        if p.is_shard(src[0])]
-                n = math.prod(x.device_mesh.size(i) for i in over)
-                if size[dst[0]] % n:
-                    gather.update(over)
-            if gather:
-                pl = [Replicate() if i in gather else p
-                      for i, p in enumerate(x.placements)]
-                with torch.no_grad():
-                    x = x.redistribute(x.device_mesh, pl)
-                args = (x,) + tuple(args[1:])
+            for strided in (False, True):
+                gather = set()
+                for src, dst in _split_groups(tuple(x.shape), size):
+                    src = [d for d in src if x.shape[d] > 1]
+                    dst = [d for d in dst if size[d] > 1]
+                    if len(src) == 1 and len(dst) > 1:
+                        gather.update(_split_gathers(
+                            x, src[0], size[dst[0]], strided))
+                y = x
+                if gather:
+                    pl = [Replicate() if i in gather else p
+                          for i, p in enumerate(x.placements)]
+                    with torch.no_grad():
+                        y = x.redistribute(x.device_mesh, pl)
+                try:
+                    return func(y, *args[1:], **kwargs)
+                except RuntimeError:
+                    # DTensor splits some strided shards itself; the others
+                    # have no rule, and are gathered
+                    if strided:
+                        raise
         return func(*args, **kwargs)
+
+
+@contextlib.contextmanager
+def card_alltoall(mesh):
+    """DTensor's shard-to-shard redistribution as the card's program issues
+    it: one all-to-all (``_dtensor::shard_dim_alltoall``), also on a
+    sharded ``cpu`` mesh, where DTensor falls back to an all-gather of the
+    whole group's shards and a chunk of it (gloo has no all-to-all). That
+    fallback is not the traced device's program: it held the whole group's
+    shards on each rank and billed an all-gather (mixtral's train step on
+    a (4, 2) mesh, whose in-place AdamW moves each expert gradient to its
+    moments' shards, read 1.66x the reference's peak with it and 0.88x
+    without). A ``cuda`` mesh, and one rank, need nothing."""
+    if mesh is None or mesh.device_type != "cpu" or mesh.size() == 1:
+        yield
+        return
+    from torch.distributed._functional_collectives import (
+        _group_or_group_name, _resolve_group)
+    from torch.distributed.tensor import placement_types
+
+    def alltoall(local, gather_dim, shard_dim, mesh, mesh_dim):
+        group = _group_or_group_name(_resolve_group((mesh, mesh_dim)))
+        return torch.ops._dtensor.shard_dim_alltoall(local, gather_dim,
+                                                     shard_dim, group)
+    fallback = placement_types.shard_dim_alltoall
+    placement_types.shard_dim_alltoall = alltoall
+    try:
+        yield
+    finally:
+        placement_types.shard_dim_alltoall = fallback
+
+
+@contextlib.contextmanager
+def remat_under(modes):
+    """Rematerialisation's recomputation under ``modes`` as well. A
+    ``remat`` layer (``torch.utils.checkpoint``) runs its forward again in
+    the backward pass, and the autograd engine runs it without the
+    caller's torch-function modes: there ``FsdpGather`` did not gather the
+    weights, and DTensor contracted the recomputed products over their
+    ``data`` shards instead. The partial sums over ``data`` were then
+    reduced whole: on the (2, 16, 16) mesh the attention output's gradient
+    kept its batch sharded over ``pod`` alone (128 of 256 sequences a
+    rank), and the probabilities' gradient was gathered whole (qwen2-72b's
+    ``train_4k``: 1,579 GiB a rank against the reference's 222). Here each
+    checkpoint's recomputation context also enters ``modes``, those not
+    active already."""
+    import torch.utils.checkpoint as C
+    from torch.overrides import _get_current_function_mode_stack
+    plain = C.checkpoint
+
+    @contextlib.contextmanager
+    def entered(ctx):
+        with contextlib.ExitStack() as stack:
+            stack.enter_context(ctx)
+            active = _get_current_function_mode_stack()
+            for m in modes:
+                if not any(a is m for a in active):
+                    stack.enter_context(m)
+            yield
+
+    def checkpoint(fn, *args, context_fn=C.noop_context_fn, **kwargs):
+        def contexts():
+            forward, recompute = context_fn()
+            return forward, entered(recompute)
+        return plain(fn, *args, context_fn=contexts, **kwargs)
+    C.checkpoint = checkpoint
+    try:
+        yield
+    finally:
+        C.checkpoint = plain
 
 
 def trace(fn, args, mesh=None, weights=(), fsdp=(), tables=()):
@@ -641,11 +771,11 @@ def trace(fn, args, mesh=None, weights=(), fsdp=(), tables=()):
     K5.register_sharding()
     an = OpAnalyzer("meta", mesh)
     an.track(tree_leaves(args))
+    placed = (FsdpGather(weights, fsdp, tables), HeadRepeat())
     # PartitionerPlacements inside the analyzer: a mode that gives DTensor
     # ops back (the analyzer) hides them from the modes outside it
-    with implicit_replication(), FsdpGather(weights, fsdp, tables), \
-            HeadRepeat(), \
-            an, PartitionerPlacements():
+    with implicit_replication(), card_alltoall(mesh), remat_under(placed), \
+            placed[0], placed[1], an, PartitionerPlacements():
         out = fn(*args)
     del out
     return an.stats()

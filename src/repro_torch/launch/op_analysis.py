@@ -24,7 +24,8 @@ offsets with CPU tensors; neither is the rank's program. It bills:
     reference bills one per output element of an XLA fusion;
   * bytes: the output buffers of materialising ops (views free; an
     in-place op bills the tensor it writes);
-  * the functional collectives (``_c10d_functional``): kind, output bytes,
+  * the functional collectives (``_c10d_functional``, and DTensor's
+    all-to-all ``_dtensor::shard_dim_alltoall``): kind, output bytes,
     group size, the reference's ring-model link bytes, and which mesh dims
     each one's group spans;
   * peak live bytes: every storage an op returns (and every tensor given
@@ -53,7 +54,7 @@ from repro_torch.kernels import swa_attention as K5
 COLLECTIVE_KINDS = ("all-gather", "all-reduce", "reduce-scatter",
                     "all-to-all", "collective-permute")
 
-# _c10d_functional op name -> the reference's collective kind
+# collective op name -> the reference's collective kind
 _FUNCOL = {
     "all_gather_into_tensor": "all-gather",
     "all_gather_into_tensor_coalesced": "all-gather",
@@ -63,6 +64,8 @@ _FUNCOL = {
     "reduce_scatter_tensor_coalesced": "reduce-scatter",
     "all_to_all_single": "all-to-all",
     "broadcast": "collective-permute",
+    # DTensor's shard-to-shard redistribution (``_dtensor`` namespace)
+    "shard_dim_alltoall": "all-to-all",
 }
 
 _aten = torch.ops.aten
@@ -216,7 +219,7 @@ class OpAnalyzer(TorchDispatchMode):
 
     def _account(self, func, args, outs):
         self.n_ops += 1
-        if func.namespace == "_c10d_functional":
+        if func.namespace in ("_c10d_functional", "_dtensor"):
             kind = _FUNCOL.get(func._opname)
             if kind is not None:
                 group = _group_of(args[-1])

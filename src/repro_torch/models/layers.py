@@ -299,16 +299,19 @@ def apply_attention_decode(p, x, cfg, k_cache, v_cache, pos, window=None):
     """One-token decode. x (B,1,D); caches (B,S,K,hd); pos (B,) integer.
 
     Caches are ring-buffers when ``window`` is set (position mod S);
-    otherwise plain append at ``pos``. Returns (out, new_k, new_v); the
-    caches passed in are not modified.
+    otherwise plain append at ``pos``. Returns (out, k_cache, v_cache).
+    The caches are consumed: the new k, v are written into them in place
+    and the same tensors come back, as the reference's decode step donates
+    its cache (``donate_argnums``), so a step never holds an old and a new
+    cache at once. A caller that needs the old cache clones it first.
     """
     b = x.shape[0]
     s = k_cache.shape[1]
     q, k, v = _qkv(p, x, x, cfg, pos[:, None], pos[:, None])
     slot = pos % s
     bidx = torch.arange(b, device=x.device)
-    k_cache = k_cache.index_put((bidx, slot), k[:, 0].to(k_cache.dtype))
-    v_cache = v_cache.index_put((bidx, slot), v[:, 0].to(v_cache.dtype))
+    k_cache.index_put_((bidx, slot), k[:, 0].to(k_cache.dtype))
+    v_cache.index_put_((bidx, slot), v[:, 0].to(v_cache.dtype))
     kpos = torch.arange(s, device=x.device)[None, :]
     win = cfg.sliding_window if window is None else window
     if win:

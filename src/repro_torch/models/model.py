@@ -157,26 +157,25 @@ def apply_sublayer_seq(p, h, cfg, positions, o, enc_out=None, ssm_state=None):
 
 
 def apply_sublayer_decode(p, h, cfg, cache_o, pos, o):
-    """One-token decode. Returns (h, new_cache_o)."""
+    """One-token decode. Returns h; the layer's cache ``cache_o`` is
+    written in place (see :func:`decode_step`)."""
     mixer, ffn = _offset_kind(cfg, o)
-    nc = dict(cache_o)
     if cfg.parallel_block:
         hn = apply_norm(p["norm"], h, cfg)
-        attn_out, nk, nv = apply_attention_decode(
+        attn_out, _, _ = apply_attention_decode(
             p["attn"], hn, cfg, cache_o["k"], cache_o["v"], pos)
         mlp_out = apply_mlp(p["mlp"], hn, cfg)
-        nc["k"], nc["v"] = nk, nv
-        return h + attn_out + mlp_out, nc
+        return h + attn_out + mlp_out
 
     hn = apply_norm(p["norm1"], h, cfg)
     if mixer == "attn":
-        out, nk, nv = apply_attention_decode(
+        out, _, _ = apply_attention_decode(
             p["attn"], hn, cfg, cache_o["k"], cache_o["v"], pos)
-        nc["k"], nc["v"] = nk, nv
     else:
         out, st = ssm_mod.apply_ssm_decode(
             p["ssm"], hn, cfg, {"conv": cache_o["conv"], "ssm": cache_o["ssm"]})
-        nc["conv"], nc["ssm"] = st["conv"], st["ssm"]
+        cache_o["conv"].copy_(st["conv"])
+        cache_o["ssm"].copy_(st["ssm"])
     h = h + out
     if "xattn" in p:
         hn = apply_norm(p["norm_x"], h, cfg)
@@ -189,7 +188,7 @@ def apply_sublayer_decode(p, h, cfg, cache_o, pos, o):
     elif ffn == "mlp":
         hn = apply_norm(p["norm2"], h, cfg)
         h = h + apply_mlp(p["mlp"], hn, cfg)
-    return h, nc
+    return h
 
 
 # ---------------------------------------------------------------------------
@@ -293,16 +292,16 @@ def apply_stack_seq(params, cfg, h, positions, enc_out=None,
 
 
 def apply_stack_decode(params, cfg, h, cache, pos):
+    """Returns (h, cache): each layer writes its slice of the stacked
+    ``cache`` in place, and the same cache comes back."""
     P = effective_period(cfg)
     layers = [_unbind(lp) for lp in params["layers"]]
     caches = [_unbind(c) for c in cache]
-    entries = [[] for _ in range(P)]
     for s in range(n_superblocks(cfg)):
         for o in range(P):
-            h, nce = apply_sublayer_decode(layers[o][s], h, cfg,
-                                           caches[o][s], pos, o)
-            entries[o].append(nce)
-    return h, tuple(_stack(e) for e in entries)
+            h = apply_sublayer_decode(layers[o][s], h, cfg, caches[o][s],
+                                      pos, o)
+    return h, cache
 
 
 def apply_encoder(params, cfg, frames):
@@ -392,7 +391,10 @@ def prefill(params, cfg, batch):
 
 def decode_step(params, cfg, cache, tokens, pos):
     """tokens (B,1) integer; pos (B,) integer. Returns (logits (B,1,V),
-    cache)."""
+    cache). The cache is consumed, as the reference's decode step donates
+    it (``donate_argnums``): every layer's new entries are written into it
+    in place and the same tensors come back, so the step never holds a
+    second cache. A caller that needs the old cache clones it first."""
     h = params["tok_embed"][tokens].to(cdtype(cfg))
     if cfg.encoder is not None:
         d = cfg.d_model

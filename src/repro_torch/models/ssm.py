@@ -154,7 +154,9 @@ def apply_ssm_seq(p, x, cfg, init_state=None):
     bsz, l = x.shape[0], x.shape[1]
     proj = x @ cx(p["in_proj"], cfg)
     z, xbc, dt = _split_proj(proj, cfg)
-    conv_tail = xbc[:, -(s.conv_width - 1):, :]          # for decode handoff
+    # for decode handoff; a copy, so that the cache does not keep the
+    # whole of xbc alive through every later layer
+    conv_tail = xbc[:, -(s.conv_width - 1):, :].clone()
     xbc = _conv_seq(p, xbc, cfg)
     xs = xbc[..., :d_in].reshape(bsz, l, h, s.head_dim)
     B = xbc[..., d_in:d_in + gn].reshape(bsz, l, s.n_groups, s.d_state)

@@ -3,8 +3,10 @@ package's ``optim/optimizers.py``.
 
 A tree is nested dicts, tuples and lists of tensors, as the LM params are.
 State layouts mirror the param tree (the AdamW state is ``{"m", "v",
-"step"}`` with ``step`` an int32 scalar tensor, as the reference's). Every
-function returns new tensors and leaves its arguments as they are.
+"step"}`` with ``step`` an int32 scalar tensor, as the reference's).
+``adamw_update`` consumes the params and state it is given (the
+reference's train step donates them) and updates them in place; the other
+functions return new tensors and leave their arguments as they are.
 Reductions over leaves run in the reference's flatten order: sorted dict
 keys, then tuple index.
 """
@@ -83,34 +85,38 @@ def _schedule(cfg: AdamWConfig, step):
 
 
 def adamw_update(cfg: AdamWConfig, params, grads, state):
-    """One AdamW step -> (new params, new state, global grad norm before
-    clipping)."""
+    """One AdamW step -> (params, state, global grad norm before clipping).
+
+    ``params`` and ``state`` are consumed, as the reference's train step
+    donates its state (``donate_argnums=0``): each leaf's moments and
+    param are updated in place, leaf by leaf, and the same trees come
+    back, so the step holds one leaf's float32 temporaries, never a second
+    tree. The arithmetic is the functional update's, op for op. A caller
+    that needs the old state clones it first."""
     # the clipped gradient g * scale is formed leaf by leaf, not as a
     # tree, so the step holds one copy of the gradients
     gnorm = _global_norm(grads)
     scale = _clip_scale(gnorm, cfg.grad_clip)
-    step = state["step"] + 1
+    step = state["step"].add_(1)
     lr = _schedule(cfg, step)
     b1, b2 = cfg.b1, cfg.b2
 
     stepf = step.to(torch.float32)
-    newm = tree_map(
-        lambda m, g: b1 * m + (1 - b1) * (g * scale).to(torch.float32),
-        state["m"], grads)
-    newv = tree_map(
-        lambda v, g: b2 * v + (1 - b2) * (g * scale).to(torch.float32)
-        .square(), state["v"], grads)
     c1, c2 = 1 - b1 ** stepf, 1 - b2 ** stepf
 
-    def upd(p, m, v):
+    def upd(p, g, m, v):
+        g32 = (g * scale).to(torch.float32)
+        m.mul_(b1).add_((1 - b1) * g32)
+        v.mul_(b2).add_((1 - b2) * g32.square())
         mhat = m / c1
         vhat = v / c2
-        newp = p - lr * (mhat / (torch.sqrt(vhat) + cfg.eps)
-                         + cfg.weight_decay * p)
-        return newp.to(p.dtype)
+        p.copy_(p - lr * (mhat / (torch.sqrt(vhat) + cfg.eps)
+                          + cfg.weight_decay * p))
 
-    newp = tree_map(upd, params, newm, newv)
-    return newp, {"m": newm, "v": newv, "step": step}, gnorm
+    for leaves in zip(tree_leaves(params), tree_leaves(grads),
+                      tree_leaves(state["m"]), tree_leaves(state["v"])):
+        upd(*leaves)
+    return params, state, gnorm
 
 
 def sgd_init(params, momentum=0.0):

@@ -4,8 +4,9 @@ Port of the JAX package's ``train/steps.py``.
 ``train_step`` is the full production step: loss -> grads -> AdamW update.
 The loss masks padding (label < 0), adds the MoE load-balance aux loss, and
 computes cross-entropy in float32 off compute-dtype matmuls. Gradients come
-from autograd on detached copies of the params (views of the same storage),
-so a step leaves the state it was given as it was.
+from autograd on detached views of the params; the AdamW update then writes
+the params and moments in place: a step consumes the state it is given, as
+the reference's ``donate_argnums=0`` does.
 """
 from __future__ import annotations
 
@@ -65,6 +66,10 @@ def init_train_state(cfg, generator, device="cuda") -> TrainState:
 
 def make_train_step(cfg, opt_cfg: AdamWConfig = AdamWConfig()):
     def train_step(state: TrainState, batch: Dict[str, torch.Tensor]):
+        """One step -> (state, metrics). ``state`` is consumed, as the
+        reference's train step donates it (``donate_argnums=0``): its params
+        and AdamW moments are updated in place and come back as the new
+        state. A caller that needs the old state clones it first."""
         (loss, parts), grads = value_and_grad(state.params, cfg, batch)
         with torch.no_grad():
             newp, newopt, gnorm = adamw_update(opt_cfg, state.params, grads,
@@ -85,5 +90,6 @@ def make_prefill_step(cfg):
 def make_decode_step(cfg):
     @torch.inference_mode()
     def decode_step(params, cache, tokens, pos):
+        """``M.decode_step``: the cache is consumed (written in place)."""
         return M.decode_step(params, cfg, cache, tokens, pos)
     return decode_step

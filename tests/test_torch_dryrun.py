@@ -398,14 +398,25 @@ def _case(arch, kind, mesh=(4, 2), seq=128, batch=8, over=None, id=None):
     # model rank (1.565x the share, peak 1.757x, link bytes 1.760x)
     _case("mamba2-1.3b", "decode", over={"vocab": 4097},
           id="mamba2-1.3b-decode-vocab-4097"),
+    # the port's own buffers, which the reference donates or never holds:
+    # each SSM layer's conv tail a view of its whole xbc, kept in the
+    # prefill cache (peak 1.795x the reference's)
+    _case("mamba2-1.3b", "prefill", seq=512, over={"n_layers": 24},
+          id="mamba2-1.3b-prefill-24-layers"),
+    # the decode cache restacked beside the one given (1.356x)
+    _case("mamba2-1.3b", "decode", batch=64, over={"n_layers": 32},
+          id="mamba2-1.3b-decode-64-rows-32-layers"),
+    # AdamW's new params and moments as whole trees beside the state
+    # (1.561x)
+    _case("mixtral-8x22b", "train", seq=16, id="mixtral-8x22b-train-seq-16"),
 ])
 def test_small_mesh_dry_run(case):
     """Small-mesh cases on 8 fake ranks, each in a process of its own,
     held against the same step traced on one rank and against the
     reference's compiled program on 8 forced host devices (which runs here
     in seconds). The first three are the reference's own
-    (``tests/test_dryrun_small.py``); the last two show a fault of the
-    production sweep at a small size. The mesh is a ``cpu`` one: on a
+    (``tests/test_dryrun_small.py``); the others each show a fault of
+    the production sweep at a small size. The mesh is a ``cpu`` one: on a
     torch built without CUDA, DTensor's shape inference for some ops
     (``_softmax_backward_data``) cannot make its fake tensors of a
     ``cuda`` mesh; ``chip_smoke.py`` traces ``cuda`` on the card.
@@ -419,8 +430,14 @@ def test_small_mesh_dry_run(case):
       * matmul FLOPs at most 1.05 times the reference's HLO dots: 0.646 to
         1.035 now (qwen3's train step and the 4097 vocab lie under them:
         XLA repeats part of the work);
-      * peak at most 1.25 times the compiled program's: 0.33 to 0.79 now
-        (0.49 for the 4097 vocab, which read 1.757);
+      * peak at most 1.25 times the compiled program's: 0.33 to 0.88 now
+        (0.49 for the 4097 vocab, which read 1.757); the 24-layer mamba2
+        prefill, the 32-layer mamba2 decode and the mixtral train step
+        read 1.795, 1.356 and 1.561 while the conv tail was a view of
+        xbc, the decode restacked its cache and AdamW built new trees
+        (0.516, 0.595 and 0.882 with the buffers reused; the mixtral
+        step also with the all-to-all of ``card_alltoall``, whose
+        all-gather fallback held 1.659);
       * link bytes at most 1.25 times the reference's ring-model bytes:
         0.16 to 0.79 now; the long-cache decode read 13.3 and the 4097
         vocab 1.76 before."""

@@ -139,10 +139,13 @@ def test_attention_decode_ring_buffer_matches_jax(window):
         pos = np.array([t, t])
         want, jk, jv = JL.apply_attention_decode(p, jnp.asarray(x), jcfg, jk,
                                                  jv, jnp.asarray(pos))
+        old = tk.clone()
         got, tk2, tv2 = TL.apply_attention_decode(tp, torch.from_numpy(x),
                                                   tcfg, tk, tv,
                                                   torch.from_numpy(pos))
-        assert not torch.equal(tk2, tk)      # a new cache, the old unchanged
+        # the cache is consumed: written in place, the same tensor back
+        assert tk2 is tk and tv2 is tv
+        assert not torch.equal(tk, old)
         tk, tv = tk2, tv2
         _close(got, want, 2e-5)
         _close(tk, jk, 2e-5)

@@ -22,8 +22,11 @@ attention over heads that ``model`` does not divide); every case above
 1.25x in FLOPs or peak or above 4x in link bytes, by name; and the
 port's ok / skipped / error count by arch. ``--before`` takes an earlier
 port sweep of the same cases and lists, for each metric, the cases whose
-ratio moved further from 1 by more than 0.5%. Imports nothing
-but the standard library.
+ratio moved further from 1 by more than 0.5%. Last, the reference's cases
+the port has no record of, and with ``--before`` the port records older
+than that sweep's record of the same case (written before the sweep it is
+compared with, so not rerun): a partial rerun shows itself instead of
+reading as complete. Imports nothing but the standard library.
 """
 from __future__ import annotations
 
@@ -39,11 +42,27 @@ BARS = {"flops": 1.25, "peak": 1.25, "link": 4.0}
 
 
 def load(d):
+    """{(arch, shape, mesh): record}, each record with its file's
+    modification time under ``_mtime``."""
     out = {}
     for f in sorted(pathlib.Path(d).glob("*.json")):
         r = json.loads(f.read_text())
+        r["_mtime"] = f.stat().st_mtime
         out[(r["arch"], r["shape"], r["mesh"])] = r
     return out
+
+
+def not_rerun(port, ref, before=None):
+    """(the reference's cases without a port record, the port records
+    older than ``before``'s record of the same case, or than its oldest
+    record where it has none of that case)."""
+    missing = sorted(k for k in ref if k not in port)
+    stale = []
+    if before:
+        start = min(r["_mtime"] for r in before.values())
+        stale = sorted(k for k, p in port.items() if p["_mtime"]
+                       < before.get(k, {"_mtime": start})["_mtime"])
+    return missing, stale
 
 
 def ref_peak(r):
@@ -103,8 +122,9 @@ def main(argv=None) -> int:
         print(f"above {bar}x in {k}: {len(above)}")
         for key, v in sorted(above, key=lambda kv: -kv[1]):
             print(f"  {' x '.join(key)}: x{v:.3f}")
-    if args.before:
-        old = compare(load(args.before), ref)
+    before = load(args.before) if args.before else None
+    if before:
+        old = compare(before, ref)
         for k in BARS:
             worse = [(key, old[key][k], row[k]) for key, row in rows.items()
                      if key in old and abs(math.log(row[k]))
@@ -118,6 +138,14 @@ def main(argv=None) -> int:
     for arch, c in sorted(counts.items()):
         print(f"{arch}: ok {c['ok']}, skipped {c['skipped']}, "
               f"error {c['error']}")
+    missing, stale = not_rerun(port, ref, before)
+    print(f"reference cases without a port record: {len(missing)}")
+    for key in missing:
+        print(f"  {' x '.join(key)}")
+    if before:
+        print(f"port records older than the --before sweep's: {len(stale)}")
+        for key in stale:
+            print(f"  {' x '.join(key)}")
     return 0
 
 
