@@ -20,13 +20,16 @@ tables, masks, positions) meet the DTensors as replicated
 (``implicit_replication``). DTensor places each op by itself; three
 modes make its per-rank program the one XLA's partitioner makes from the
 whole step: ``FsdpGather`` gathers a weight's ``data`` (FSDP storage)
-shard before each product and lookup (a decode step's embedding table
-stays sharded and its rows move), ``HeadRepeat`` keeps a group repeated
-out to the heads sharded over ``model``, and ``PartitionerPlacements``
-keeps ``new_zeros`` sharded, gathers a dim before a view splits it
-unevenly, reduces partial sums before a product, splits a product that
-would be repeated on every ``model`` rank, and writes the decode cache
-on each rank's own rows. ``tests/test_torch_dryrun.py`` holds the
+shard before each product and lookup where ``data`` splits the batch (one
+sequence leaves the weights on their shards and reduces the partial
+products; a decode step's embedding table stays sharded and its rows
+move), ``HeadRepeat`` keeps a group repeated out to the heads sharded
+over ``model``, and ``PartitionerPlacements`` keeps ``new_zeros``
+sharded, gathers a dim before a view splits it unevenly, reduces partial
+sums before a product, splits a product that would be repeated on every
+``model`` rank, writes the decode cache on each rank's own rows, reduces
+a softmax over sharded keys by its statistics, and gathers a tensor
+once for all its slices. ``tests/test_torch_dryrun.py`` holds the
 per-rank matmul FLOPs, peak and link bytes against the one-rank trace of
 the same step and against the JAX package's compiled program on a (4, 2)
 mesh. The kernel routes (``attn_impl="flash"``, ``ssm_impl="pallas"``)
@@ -233,13 +236,21 @@ class FsdpGather(TorchFunctionMode):
     ``bmm``, ``linear``) or a lookup (``table[indices]``) that comes from
     ``weights`` (by storage, through casts, views and slices) is gathered
     over the ``fsdp`` mesh dims first. Autograd reduce-scatters its
-    gradient back to the storage placements. The embedding ``tables``
-    are the exception when fewer values meet them than they hold (a
-    decode step's tokens): a lookup gathers the indices and moves the rows
-    to the indices' shards, and the unembedding keeps the table's shards
-    (DTensor moves the activations), as XLA does; gathering mamba2's
-    table for 128 tokens held 1.2 GiB a rank at ``decode_32k``. The
-    recomputation of a rematerialised layer runs under this mode too
+    gradient back to the storage placements. Two exceptions, both as XLA
+    places them:
+
+    * a mesh dim that splits none of the activations' rows (one sequence,
+      as at ``long_500k``, which ``data`` cannot split): the weight keeps
+      its shard there, each rank contracts its slice of the activation,
+      and the partial product is all-reduced at once (:meth:`_kept`);
+    * the embedding ``tables`` when fewer values meet them than they hold
+      (a decode step's tokens): a lookup reads each rank's own rows and
+      moves them to the indices' shards (:func:`_local_lookup`), and the
+      unembedding keeps the table's shards (DTensor moves the
+      activations); gathering mamba2's table for 128 tokens held 1.2 GiB
+      a rank at ``decode_32k``.
+
+    The recomputation of a rematerialised layer runs under this mode too
     (:func:`remat_under`)."""
 
     _PRODUCTS = {torch.matmul, torch.Tensor.matmul, torch.bmm,
@@ -282,15 +293,16 @@ class FsdpGather(TorchFunctionMode):
         return self._is_table(table) and isinstance(idx, DTensor) \
             and idx.numel() * table.shape[-1] < table.numel()
 
-    def _gathered(self, ops):
-        """A product's operands, the weights gathered, unless the weight is
-        a table that fewer rows meet than it has, so that the product is
-        smaller than the table (the unembedding of a decode step): then the
-        table stays and DTensor moves the activations. A train step's lm
-        head over 2 x 4096 tokens of d_model 8192 gathers the table, as XLA
-        does: kept sharded over ``data``, its logits came partial and were
-        gathered whole over the vocab (1.0e10 B a rank for qwen2-72b on
-        (2, 2, 16), 30% of the layer's peak)."""
+    def _gathered(self, ops, eq=None):
+        """(A product's operands with the weights gathered, the mesh dims
+        on which the weights keep their shards (:meth:`_kept`)). A table
+        that fewer rows meet than it has, so that the product is smaller
+        than the table (the unembedding of a decode step), is not gathered:
+        DTensor moves the activations. A train step's lm head over 2 x 4096
+        tokens of d_model 8192 gathers the table, as XLA does: kept sharded
+        over ``data``, its logits came partial and were gathered whole over
+        the vocab (1.0e10 B a rank for qwen2-72b on (2, 2, 16), 30% of the
+        layer's peak). ``eq``: an einsum's equation."""
         ops = tuple(ops)
         w = [a for a in ops if self._is_weight(a)]
         rows = [a.numel() // max(a.shape[-1], 1) for a in ops
@@ -298,14 +310,51 @@ class FsdpGather(TorchFunctionMode):
                 and not self._is_weight(a)]
         if w and rows and all(self._is_table(a) for a in w) \
                 and max(rows) < min(a.shape[0] for a in w):
-            return ops
-        return tuple(self._gather(a) for a in ops)
+            return ops, ()
+        keep = self._kept(ops, eq)
+        return tuple(self._gather(a, keep) for a in ops), keep
 
-    def _gather(self, t):
+    def _kept(self, ops, eq=None):
+        """The ``fsdp`` mesh dims on which a product's weights keep their
+        shards: those on which no activation is sharded along a dim the
+        product does not contract (its rows: a batch, a sequence). A batch
+        that the dim cannot split (one sequence, ``long_500k``) leaves the
+        dim to the weights, as XLA's partitioner does: each rank contracts
+        its slice of the activation against the weight's shard (a local
+        slice, no collective), and the product, partial there, is
+        all-reduced at once (the reference's one-sequence decode
+        all-reduces mamba2's ``in_proj`` output, f32[1, 552], and has no
+        all-gather). Gathering the weight made each ``data`` rank repeat
+        the whole product (qwen3's smoke decode of one sequence on (4, 2):
+        2.0x a rank's share of the matmul FLOPs, 72x the reference's link
+        bytes)."""
+        from torch.distributed.tensor import DTensor
+        acts = [(j, a) for j, a in enumerate(ops) if isinstance(a, DTensor)
+                and not self._is_weight(a)]
+        if not acts or len(acts) == len(ops) or eq is not None and "." in eq:
+            return ()
+        if eq is not None:
+            ins = eq.replace(" ", "").split("->")[0].split(",")
+            wsub = "".join(s for s, a in zip(ins, ops) if self._is_weight(a))
+            out = eq.split("->")[1] if "->" in eq else ""
+            rows = {j: {d for d, c in enumerate(ins[j])
+                        if c not in wsub or c in out} for j, _ in acts}
+        else:
+            # matmul / linear: the activation's last dim is contracted as
+            # the left operand, its second-to-last as the right one
+            rows = {j: set(range(a.ndim)) - {a.ndim - 1 if j == 0
+                                             else max(a.ndim - 2, 0)}
+                    for j, a in acts}
+        return tuple(i for i in self._fsdp if not any(
+            p.is_shard() and p.dim % a.ndim in rows[j]
+            for j, a in acts for p in (a.placements[i],)))
+
+    def _gather(self, t, keep=()):
         from torch.distributed.tensor import Replicate
         if not self._is_weight(t):
             return t
-        pl = [Replicate() if i in self._fsdp and p.is_shard() else p
+        pl = [Replicate() if i in self._fsdp and i not in keep
+              and p.is_shard() else p
               for i, p in enumerate(t.placements)]
         if pl == list(t.placements):
             return t
@@ -314,19 +363,24 @@ class FsdpGather(TorchFunctionMode):
     def __torch_function__(self, func, types, args=(), kwargs=None):
         from torch.distributed.tensor import DTensor
         kwargs = kwargs or {}
+        keep = ()
         lookup = func is torch.Tensor.__getitem__ and \
             isinstance(args[1], torch.Tensor)
         if lookup and self._fewer_rows(*args[:2]):
+            out = _local_lookup(*args[:2])
+            if out is not None:
+                return out
             return _rows_like(func(*args, **kwargs), args[1])
         if lookup:
             args = (self._gather(args[0]),) + tuple(args[1:])
         elif func is torch.einsum:
             ops = args[1] if len(args) == 2 and \
                 isinstance(args[1], (list, tuple)) else args[1:]
-            args = (args[0],) + self._gathered(ops)
+            ops, keep = self._gathered(ops, args[0])
+            args = (args[0],) + ops
         elif func in self._PRODUCTS:
-            args = self._gathered(args)
-        out = func(*args, **kwargs)
+            args, keep = self._gathered(args)
+        out = _reduced(func(*args, **kwargs), keep)
         if func in self._CARRY and not lookup and self._is_weight(args[0]):
             table = self._is_table(args[0])
             for t in (out if isinstance(out, (list, tuple)) else (out,)):
@@ -389,14 +443,70 @@ def _local_repeat(x, rep, dim):
         stride=make_contiguous_strides_for(tuple(shape)))
 
 
+def _reduced(t, dims):
+    """``t`` with its partial sums over the mesh ``dims`` reduced
+    (``Partial`` -> ``Replicate``)."""
+    from torch.distributed.tensor import DTensor, Replicate
+    if not dims or not isinstance(t, DTensor):
+        return t
+    pl = [Replicate() if i in dims and p.is_partial() else p
+          for i, p in enumerate(t.placements)]
+    return t if pl == list(t.placements) else t.redistribute(
+        t.device_mesh, pl)
+
+
 def _rows_like(rows, idx):
-    """Looked-up ``rows`` (DTensor's placement: the indices gathered, the
-    rows sharded by the table's columns) moved to the indices' batch
-    shards, whole rows on each rank."""
+    """Looked-up ``rows`` moved to the indices' batch shards, whole rows on
+    each rank."""
     from torch.distributed.tensor import Replicate
     pl = [p if p.is_shard() and p.dim < idx.ndim else Replicate()
           for p in idx.placements]
     return rows.redistribute(rows.device_mesh, pl)
+
+
+def _local_lookup(table, idx):
+    """``table[idx]`` on each rank's shard of a 2-D table, as XLA's
+    partitioner looks up a table sharded by rows: a rank looks up the
+    indices that fall in its rows (the others read row 0, masked to 0), so
+    the rows come out partial over a mesh dim that shards the vocab, and
+    sharded by columns over one that shards them; the indices are gathered
+    over both first (small), and the rows then moved to the indices' batch
+    shards (:func:`_rows_like`). DTensor has no rule for an index into a
+    row-sharded table: it moved the whole table's shard to a column shard
+    with an all-to-all first (65,536 B a rank for a smoke qwen3 on (4, 2),
+    the whole program's largest collective at one sequence). None where
+    the table is partial or not 2-D."""
+    from torch._prims_common import make_contiguous_strides_for
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    from torch.distributed.tensor._utils import (
+        compute_local_shape_and_global_offset)
+    if table.ndim != 2 or any(not (p.is_replicate() or p.is_shard())
+                              for p in table.placements):
+        return None
+    mesh = table.device_mesh
+    ipl, opl = [], []
+    for p, q in zip(table.placements, idx.placements):
+        if p.is_shard(0):
+            ipl.append(Replicate())
+            opl.append(Partial())
+        elif p.is_shard(1):
+            ipl.append(Replicate())
+            opl.append(Shard(idx.ndim))
+        else:
+            ipl.append(q)
+            opl.append(q)
+    ids = idx.redistribute(mesh, ipl).to_local()
+    local = table.to_local()
+    _, (lo, _) = compute_local_shape_and_global_offset(
+        tuple(table.shape), mesh, table.placements)
+    ids = ids - lo
+    inside = (ids >= 0) & (ids < local.shape[0])
+    rows = local[torch.where(inside, ids, 0)] * inside[..., None]
+    shape = tuple(idx.shape) + (table.shape[1],)
+    out = DTensor.from_local(rows, mesh, opl, run_check=False,
+                             shape=torch.Size(shape),
+                             stride=make_contiguous_strides_for(shape))
+    return _rows_like(out, idx)
 
 
 def _split_groups(src, dst):
@@ -444,6 +554,91 @@ def _split_gathers(x, dim, lead, strided=False):
     return []
 
 
+def _strided_split(func, x, size, groups):
+    """A view that splits a dim carrying a strided shard back into the
+    dims a view merged ((b·h) -> (b, h), the heads sharded under a
+    batch): the strided shard is a plain shard of the dim it names, and
+    the view is the local one, each rank keeping its heads. None where the
+    view is not that split. DTensor's view rule replicated the minor dim
+    instead: attention's scores over heads sharded on ``model``, computed
+    on each rank's heads, were gathered whole after the product (4.3e9 B
+    a rank in one full-width phi-3 layer's train step on (2, 2, 16))."""
+    from torch._prims_common import make_contiguous_strides_for
+    from torch.distributed.tensor import DTensor, Shard
+    if not any(_strided(p, getattr(p, "dim", -1)) for p in x.placements):
+        return None
+    mesh, pl = x.device_mesh, list(x.placements)
+    local = [1] * len(size)
+    for src, dst in groups:
+        src = [d for d in src if x.shape[d] > 1]
+        dst = [d for d in dst if size[d] > 1]
+        over = [i for i, p in enumerate(x.placements)
+                if any(p.is_shard(d) or _strided(p, d) for d in src)]
+        if not over:
+            for d in dst:
+                local[d] = size[d]
+        elif len(src) == len(dst) == 1:
+            local[dst[0]] = x._local_tensor.shape[src[0]]
+            for i in over:
+                p = x.placements[i]
+                pl[i] = type(p)(dst[0], split_factor=p.split_factor) \
+                    if _strided(p, src[0]) else Shard(dst[0])
+        elif len(src) == 1 and len(dst) > 1:
+            plain, p = over[:-1], x.placements[over[-1]]
+            if not _strided(p, src[0]):
+                return None
+            n = math.prod(mesh.size(i) for i in plain)
+            # the strided shard's dim: the one whose major dims hold
+            # split_factor rows a rank
+            lead = [math.prod(size[d] for d in dst[:j]) for j in
+                    range(len(dst))]
+            minor = [d for d, f in zip(dst, lead)
+                     if f == p.split_factor * n]
+            if not minor or size[dst[0]] % n \
+                    or any(not x.placements[i].is_shard(src[0])
+                           for i in plain) \
+                    or size[minor[0]] % mesh.size(over[-1]):
+                return None
+            for d in dst:
+                local[d] = size[d]
+            local[dst[0]] //= n
+            local[minor[0]] //= mesh.size(over[-1])
+            for i in plain:
+                pl[i] = Shard(dst[0])
+            pl[over[-1]] = Shard(minor[0])
+        else:
+            return None
+    return DTensor.from_local(
+        func(x._local_tensor, local), mesh, pl, run_check=False,
+        shape=torch.Size(size), stride=make_contiguous_strides_for(size))
+
+
+def _moved_shards(x, over, groups, size):
+    """``x``'s placements for a view to ``size`` that splits a dim sharded
+    over the mesh dims ``over`` unevenly: each of them moved to the
+    largest dim the view keeps whole, past the batch and before the last,
+    that no other mesh dim shards and its size divides (a projection's
+    sequence), else replicated. The view then keeps the rank's share:
+    attention's queries, their heads gathered for a view into (kv heads,
+    group) that 16 does not divide, were computed whole on each ``model``
+    rank, their scores contracted over hd and partial, the whole
+    sequence's scores held on each rank before the reduction (one
+    full-width qwen2-72b layer's train step on (2, 2, 16): 2.1e10 B a
+    rank, 2.4x the reference's peak). Sharded by query, the scores need
+    no reduction, as XLA shards them."""
+    from torch.distributed.tensor import Replicate, Shard
+    kept = [src[0] for src, dst in groups if len(src) == len(dst) == 1
+            and x.shape[src[0]] == size[dst[0]]]
+    pl = list(x.placements)
+    for i in sorted(over):
+        free = [d for d in kept if 0 < d < x.ndim - 1
+                and x.shape[d] % x.device_mesh.size(i) == 0
+                and not any(q.is_shard(d) or _strided(q, d) for q in pl)]
+        pl[i] = Shard(max(free, key=lambda d: x.shape[d])) if free \
+            else Replicate()
+    return pl
+
+
 def _strided(p, dim):
     from torch.distributed.tensor.placement_types import _StridedShard
     return isinstance(p, _StridedShard) and p.dim == dim
@@ -464,7 +659,13 @@ def _product_operands(func, args):
       XLA contracts mamba2's lm head over 128 of 2048), else along its
       columns (N: heads x hd, or a vocab that ``model`` need not divide: a
       rank then computes ceil(N / m) columns, as XLA pads N), else along
-      its contraction."""
+      its contraction. A batched product of fewer rows than ``model`` has
+      ranks (a decode step's scores: one query of each group, (b·k, g,
+      hd) with the cache's (b·k, hd, s)) is split along its columns
+      first: split along hd, its partial scores were reduced whole over
+      ``model`` (60% of jamba's ``long_500k`` link bytes), where split by
+      key they need only softmax's statistics and the small ``w·v``
+      partials."""
     from torch.distributed.tensor import DTensor, Replicate
     lhs, rhs = (1, 2) if func in (torch.ops.aten.addmm.default,
                                   torch.ops.aten.baddbmm.default) else (0, 1)
@@ -480,6 +681,7 @@ def _product_operands(func, args):
     a, b = args[lhs], args[rhs]
     if not (isinstance(a, DTensor) and isinstance(b, DTensor)):
         return tuple(args)
+    args[lhs], args[rhs] = a, b = _gather_small_operand(a, b)
     names = tuple(b.device_mesh.mesh_dim_names or ())
     if "model" not in names:
         return tuple(args)
@@ -488,8 +690,8 @@ def _product_operands(func, args):
     if m == 1 or not (a.placements[i].is_replicate()
                       and b.placements[i].is_replicate()):
         return tuple(args)
-    k, n = a._local_tensor.shape[-1], b._local_tensor.shape[-1]
-    if a.ndim == 3 and k % m == 0:
+    rows, k, n = a._local_tensor.shape[-2:] + b._local_tensor.shape[-1:]
+    if a.ndim == 3 and k % m == 0 and not (rows < m <= n):
         a, b = _shard_on(a, i, a.ndim - 1), _shard_on(b, i, b.ndim - 2)
     elif n % m == 0 or n >= m:
         b = _shard_on(b, i, b.ndim - 1)
@@ -497,6 +699,143 @@ def _product_operands(func, args):
         a, b = _shard_on(a, i, a.ndim - 1), _shard_on(b, i, b.ndim - 2)
     args[lhs], args[rhs] = a, b
     return tuple(args)
+
+
+def _strided_product(func, a, b):
+    """``mm`` / ``bmm`` of ``a`` and ``b`` on each rank's shards where an
+    operand has a strided shard (a view merged a sharded minor dim into a
+    major one), or None where neither has one or a mesh dim pairs
+    placements that have no local product. DTensor has no product rule
+    for a strided shard and gathered it: the gradient of attention's
+    scores (b·k, g·q, s), its queries over ``model`` merged under the
+    group, was gathered whole for the products of q's and k's gradients
+    (3 x 8.59e9 B a rank, 88% of the peak of one full-width qwen2-72b
+    layer on (2, 2, 16)). Here, mesh dim by mesh dim:
+
+    * a strided shard of the batch stays, the other operand moved to it
+      (a local slice of a replicated one), and the product keeps it
+      (heads sharded under a merged batch: attention's (b·h) in phi-3,
+      SSD's (b·chunks·heads));
+    * a strided shard of the rows (``a``'s M) or the columns (``b``'s N)
+      stays, the other operand replicated there, and the product's rows
+      or columns keep it, unless the other operand is sharded there and
+      the strided one is the smaller: that one is gathered instead (an
+      lm head's table, its vocab on ``model``, met by rows of a sequence
+      on ``model``: 4.98e9 B a rank of qwen2-72b gathered otherwise);
+    * a strided shard of the contraction is matched on the other operand
+      (a local slice of a replicated one) and the product is partial;
+    * plain shards of the batch, rows, columns and contraction pair as
+      they do under DTensor's rule, a replicated partner sliced locally.
+
+    Partial operands are reduced first, as :func:`_product_operands`
+    reduces them."""
+    from torch._prims_common import make_contiguous_strides_for
+    from torch.distributed.tensor import DTensor, Partial, Replicate
+    if not (isinstance(a, DTensor) and isinstance(b, DTensor)) or not any(
+            _strided(p, getattr(p, "dim", -1))
+            for p in (*a.placements, *b.placements)):
+        return None
+    mesh, nd = a.device_mesh, a.ndim
+    m, k, n = nd - 2, nd - 1, nd - 1              # a (.., M, K), b (.., K, N)
+    rep = Replicate()
+    a_smaller = a._local_tensor.numel() <= b._local_tensor.numel()
+    a_pl, b_pl, o_pl = [], [], []
+    for pa, pb in zip(a.placements, b.placements):
+        pa = rep if pa.is_partial() else pa
+        pb = rep if pb.is_partial() else pb
+        if nd == 3 and _strided(pa, 0):
+            pair = (pa, pa, pa)
+        elif nd == 3 and _strided(pb, 0):
+            pair = (pb, pb, pb)
+        elif _strided(pa, m) and (pb.is_replicate() or not a_smaller):
+            pair = (pa, rep, pa)
+        elif _strided(pb, n) and (pa.is_replicate() or a_smaller):
+            pair = (rep, pb, type(pb)(nd - 1, split_factor=pb.split_factor))
+        elif _strided(pa, m) or _strided(pb, n):
+            # the smaller operand gathered, the other's shard kept
+            pa, pb = (rep, pb) if _strided(pa, m) else (pa, rep)
+            pair = _plain_pair(pa, pb, nd)
+        elif _strided(pa, k) and (pb.is_replicate() or pb == type(pa)(
+                k - 1, split_factor=pa.split_factor)):
+            pair = (pa, type(pa)(k - 1, split_factor=pa.split_factor),
+                    Partial())
+        elif _strided(pb, k - 1) and pa.is_replicate():
+            pair = (type(pb)(k, split_factor=pb.split_factor), pb,
+                    Partial())
+        elif any(_strided(p, getattr(p, "dim", -1)) for p in (pa, pb)):
+            return None
+        else:
+            pair = _plain_pair(pa, pb, nd)
+        if pair is None:
+            return None
+        a_pl.append(pair[0])
+        b_pl.append(pair[1])
+        o_pl.append(pair[2])
+    if a_pl != list(a.placements):
+        a = a.redistribute(mesh, a_pl)
+    if b_pl != list(b.placements):
+        b = b.redistribute(mesh, b_pl)
+    shape = tuple(a.shape[:-1]) + (b.shape[-1],)
+    return DTensor.from_local(
+        func(a._local_tensor, b._local_tensor), mesh, o_pl, run_check=False,
+        shape=torch.Size(shape), stride=make_contiguous_strides_for(shape))
+
+
+def _plain_pair(pa, pb, nd):
+    """(``a``'s, ``b``'s, the product's placement) on one mesh dim for
+    ``a @ b`` of ``nd`` dims with plain shards or replicas, the replicated
+    operand sliced to the other's shard; None where the shards conflict."""
+    from torch.distributed.tensor import Partial, Shard
+    m, k = nd - 2, nd - 1
+    if nd == 3 and (pa.is_shard(0) or pb.is_shard(0)) \
+            and (pa.is_shard(0) or pa.is_replicate()) \
+            and (pb.is_shard(0) or pb.is_replicate()):
+        return Shard(0), Shard(0), Shard(0)
+    if pa.is_shard(k) and (pb.is_shard(k - 1) or pb.is_replicate()) \
+            or pb.is_shard(k - 1) and pa.is_replicate():
+        return Shard(k), Shard(k - 1), Partial()
+    if pa.is_shard(m) and pb.is_replicate():
+        return pa, pb, Shard(m)
+    if pb.is_shard(k) and pa.is_replicate():
+        return pa, pb, Shard(k)
+    if pa.is_replicate() and pb.is_replicate():
+        return pa, pb, pa
+    return None
+
+
+def _gather_small_operand(a, b):
+    """``a @ b`` where a mesh dim shards ``a``'s rows (M) and ``b``'s
+    contraction or columns, or ``b``'s columns (N) and ``a``'s
+    contraction or rows: the latter operand is gathered there when the
+    whole of it is no larger than the rank's output, and the product keeps
+    the row or column shard with no reduction. DTensor moved both operands
+    to another shard instead: to the contraction's, reducing a partial
+    product (attention's scores of queries sharded by sequence and keys
+    by key or by hd, whisper's 12 heads over 16 ranks: 99% of
+    ``prefill_32k``'s link bytes on the multi-pod mesh, 5.03x the
+    reference's), or to the batch's, merged (sequences, heads), which the
+    view back to the heads then gathered whole (phi-3's scores in a
+    multi-pod train step: 1.7e10 B a rank, 0.21 -> 0.83x the reference's
+    peak)."""
+    from torch.distributed.tensor import Replicate
+    m_dim, k_a, k_b, n_dim = a.ndim - 2, a.ndim - 1, b.ndim - 2, b.ndim - 1
+    # the rank's output with all columns, or with all rows
+    by_rows = math.prod(a._local_tensor.shape[:-1]) * b.shape[-1]
+    by_cols = math.prod(a._local_tensor.shape[:-2]) * a.shape[-2] \
+        * b._local_tensor.shape[-1]
+    for i, (pa, pb) in enumerate(zip(a.placements, b.placements)):
+        size = a.device_mesh.size(i)
+        if pa.is_shard(m_dim) and (pb.is_shard(k_b) or pb.is_shard(n_dim)) \
+                and b._local_tensor.numel() * size <= by_rows:
+            b = b.redistribute(b.device_mesh, [
+                Replicate() if j == i else p
+                for j, p in enumerate(b.placements)])
+        elif pb.is_shard(n_dim) and (pa.is_shard(k_a) or pa.is_shard(m_dim)) \
+                and a._local_tensor.numel() * size <= by_cols:
+            a = a.redistribute(a.device_mesh, [
+                Replicate() if j == i else p
+                for j, p in enumerate(a.placements)])
+    return a, b
 
 
 def _shard_on(t, i, dim):
@@ -508,16 +847,153 @@ def _shard_on(t, i, dim):
     return t.redistribute(t.device_mesh, pl)
 
 
-def _softmax_grad_like(grad, out, dim):
+def _softmax_grad_like(grad, out):
     """The softmax gradient ``grad`` placed as the softmax output ``out``
     where ``out`` is sharded off the softmax dim: the backward then runs on
     the forward's shards. DTensor gathered both whole where they differ
     (attention's probabilities sharded by query over ``model``, their
-    gradient by key), holding every query's scores on each rank."""
-    dim %= out.ndim
-    if any(p.is_shard(dim) or p.is_partial() for p in out.placements):
+    gradient by key), holding every query's scores on each rank. (A
+    softmax dim sharded on the mesh is :func:`_sharded_softmax_backward`'s.)"""
+    if any(p.is_partial() for p in out.placements) \
+            or list(grad.placements) == list(out.placements):
         return grad
     return grad.redistribute(grad.device_mesh, out.placements)
+
+
+def _stats_over(local, x, dim, dims, op):
+    """A rank's ``(..., 1)`` statistic ``local`` of its shard of ``x``
+    along ``dim``, reduced (``op``: "max" or "sum") over the mesh ``dims``
+    that shard ``dim``, as a plain tensor."""
+    from torch._prims_common import make_contiguous_strides_for
+    from torch.distributed.tensor import DTensor, Partial, Replicate
+    shape = list(x.shape)
+    shape[dim] = 1
+    t = DTensor.from_local(
+        local, x.device_mesh, [Partial(op) if i in dims else p
+                               for i, p in enumerate(x.placements)],
+        run_check=False, shape=torch.Size(shape),
+        stride=make_contiguous_strides_for(shape))
+    return t.redistribute(x.device_mesh, [
+        Replicate() if i in dims else p
+        for i, p in enumerate(x.placements)]).to_local()
+
+
+def _key_sharded(x, dim):
+    """The mesh dims that shard ``x``'s ``dim`` (plain or strided
+    shards), or None where ``x`` is partial."""
+    if any(p.is_partial() for p in x.placements):
+        return None
+    return [i for i, p in enumerate(x.placements)
+            if p.is_shard(dim) or _strided(p, dim)]
+
+
+def _sharded_softmax(x, dim, half_to_float):
+    """``softmax(x, dim)`` over a ``dim`` sharded on the mesh, each rank on
+    its own shard: the max and the sum are ``(..., 1)`` statistics reduced
+    over the shards (an all-reduce of ``max``, then of ``sum``), and the
+    output keeps ``x``'s placements, as XLA's partitioner reduces the
+    softmax of a long context's scores, whose keys (the cache's sequence)
+    lie on ``data``. DTensor gathered the scores whole over the dim. None
+    where ``dim`` is not sharded."""
+    from torch.distributed.tensor import DTensor
+    dim %= x.ndim
+    dims = _key_sharded(x, dim)
+    if not dims or half_to_float:
+        return None
+    local = x._local_tensor
+    m = _stats_over(local.amax(dim, keepdim=True), x, dim, dims, "max")
+    e = (local - m).exp_()
+    e.div_(_stats_over(e.sum(dim, keepdim=True), x, dim, dims, "sum"))
+    return DTensor.from_local(e, x.device_mesh, x.placements,
+                              run_check=False, shape=x.shape,
+                              stride=x.stride())
+
+
+def _sharded_logsumexp(x, dim, keepdim=False):
+    """``logsumexp(x, dim)`` over one dim sharded on the mesh, each rank on
+    its own shard: ``M + log Σ exp(x − M)`` with the max ``M`` and the
+    sum reduced over the shards as ``(..., 1)`` statistics. DTensor
+    gathered the whole dim: a train step's cross-entropy over a vocab
+    sharded on ``model`` held every rank's logits whole (3 x 4.98e9 B a
+    rank, one full-width qwen2-72b layer on (2, 2, 16)). None where the
+    dim is not sharded."""
+    from torch._prims_common import make_contiguous_strides_for
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    if len(dim) != 1:
+        return None
+    d = dim[0] % x.ndim
+    dims = _key_sharded(x, d)
+    if not dims:
+        return None
+    local = x._local_tensor
+    m = _stats_over(local.amax(d, keepdim=True), x, d, dims, "max")
+    e = (local - m).exp_()
+    out = m + _stats_over(e.sum(d, keepdim=True), x, d, dims, "sum").log_()
+    del e
+    pl = [Replicate() if i in dims else p
+          for i, p in enumerate(x.placements)]
+    shape = list(x.shape)
+    shape[d] = 1
+    if not keepdim:
+        out = out.squeeze(d)
+        del shape[d]
+        pl = [Shard(p.dim - 1) if p.is_shard() and p.dim > d else p
+              for p in pl]
+    return DTensor.from_local(out, x.device_mesh, pl, run_check=False,
+                              shape=torch.Size(shape),
+                              stride=make_contiguous_strides_for(shape))
+
+
+def _sharded_softmax_backward(grad, out, dim):
+    """Softmax's backward ``out · (grad − Σ grad·out)`` over a ``dim`` on
+    which ``out`` is sharded, on ``out``'s shards (``grad`` moved there
+    first): the sum is a ``(..., 1)`` statistic reduced over the shards.
+    None where ``out``'s ``dim`` is not sharded."""
+    from torch.distributed.tensor import DTensor
+    dim %= out.ndim
+    dims = _key_sharded(out, dim)
+    if not dims:
+        return None
+    if list(grad.placements) != list(out.placements):
+        grad = grad.redistribute(out.device_mesh, out.placements)
+    g, o = grad._local_tensor, out._local_tensor
+    t = _stats_over((g * o).sum(dim, keepdim=True), out, dim, dims,
+                    "sum")
+    return DTensor.from_local((g - t).mul_(o), out.device_mesh,
+                              out.placements, run_check=False,
+                              shape=out.shape, stride=out.stride())
+
+
+def _local_scatter_add(x, dim, index, src):
+    """``x.scatter_add(dim, index, src)`` with ``x`` sharded on ``dim``
+    (a logits gradient's vocab): each rank adds the entries whose index
+    falls in its columns (the others masked to 0), ``index`` and ``src``
+    replicated there first and placed as ``x`` on the other mesh dims. None
+    where ``x`` is not sharded on ``dim`` or is partial."""
+    from torch.distributed.tensor import DTensor, Replicate
+    from torch.distributed.tensor._utils import (
+        compute_local_shape_and_global_offset)
+    dim %= x.ndim
+    over = [i for i, p in enumerate(x.placements) if p.is_shard(dim)]
+    if not over or not isinstance(index, DTensor) \
+            or not isinstance(src, DTensor) \
+            or any(p.is_partial() or _strided(p, getattr(p, "dim", -1))
+                   for p in x.placements):
+        return None
+    mesh = x.device_mesh
+    pl = [Replicate() if i in over else p
+          for i, p in enumerate(x.placements)]
+    index = index.redistribute(mesh, pl).to_local()
+    src = src.redistribute(mesh, pl).to_local()
+    local = x._local_tensor
+    _, offset = compute_local_shape_and_global_offset(tuple(x.shape), mesh,
+                                                      x.placements)
+    index = index - offset[dim]
+    inside = (index >= 0) & (index < local.shape[dim])
+    out = local.scatter_add(dim, torch.where(inside, index, 0),
+                            src * inside)
+    return DTensor.from_local(out, mesh, x.placements, run_check=False,
+                              shape=x.shape, stride=x.stride())
 
 
 def _local_row_write(func, x, indices, values, accumulate=False):
@@ -573,7 +1049,13 @@ class PartitionerPlacements(TorchDispatchMode):
       (``grad.new_zeros(logits shape)``, then ``scatter_add``) would make
       every rank hold the whole batch's logit gradient (196 GiB for
       mamba2-1.3b's ``train_4k``). Here the zeros keep the DTensor's shards
-      on the dims whose size they share with it.
+      on the dims whose size they share with it, and take a gathered
+      tensor's shards of the same shape on the others (the logits'
+      vocab over ``model``, recorded at ``gather``): the ``scatter_add``
+      then writes each rank's own columns (:func:`_local_scatter_add`).
+      Replicated over the vocab, the logits' gradient was held whole on
+      each ``model`` rank (2 x 4.98e9 B a rank, one full-width qwen2-72b
+      layer on (2, 2, 16)).
     * A view that splits a sharded dim into factors whose first one the
       mesh dim does not divide (a projection's heads x hd output, sharded
       over 16 ranks, back into 40, 12 or 8 heads), or one sharded by a
@@ -600,7 +1082,18 @@ class PartitionerPlacements(TorchDispatchMode):
       over ``model``): DTensor gathered both, every query's scores whole on
       each rank (4.4 copies: 3.837e10 B a rank for one full-width qwen2-72b
       layer on (2, 2, 16), against the reference's 8.79e9). The gradient
-      is moved to the output's shards first (:func:`_softmax_grad_like`)."""
+      is moved to the output's shards first (:func:`_softmax_grad_like`).
+    * Softmax over a dim sharded on the mesh (a one-sequence cache's keys,
+      on ``data``): DTensor gathered the scores whole over the dim. Each
+      rank keeps its keys, and the max and the sum are ``(..., 1)``
+      statistics all-reduced over the shards (:func:`_sharded_softmax`),
+      as XLA reduces them; the backward of such a softmax likewise
+      (:func:`_sharded_softmax_backward`). The ``w·v`` product after it
+      contracts the sharded keys and comes out partial.
+    * Slices along a sharded dim (mamba2's one-token ``in_proj`` output
+      cut into z, xbc and dt): DTensor gathered the whole tensor once a
+      slice; here its slices share one gather
+      (:meth:`_gathered_for_slice`)."""
 
     _PRODUCTS = (torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
                  torch.ops.aten.addmm.default,
@@ -609,6 +1102,12 @@ class PartitionerPlacements(TorchDispatchMode):
                   torch.ops.aten.index_put_.default)
     _ARANGE = (torch.ops.aten.arange.default, torch.ops.aten.arange.start,
                torch.ops.aten.arange.start_step)
+    _PLAIN_PRODUCTS = (torch.ops.aten.mm.default, torch.ops.aten.bmm.default)
+    _GATHER = torch.ops.aten.gather.default
+    _SCATTER_ADD = torch.ops.aten.scatter_add.default
+    _SOFTMAX = torch.ops.aten._softmax.default
+    _LOGSUMEXP = torch.ops.aten.logsumexp.default
+    _SLICES = (torch.ops.aten.slice.Tensor, torch.ops.aten.select.int)
     _SOFTMAX_BACKWARD = torch.ops.aten._softmax_backward_data.default
 
     def __init__(self):
@@ -616,6 +1115,39 @@ class PartitionerPlacements(TorchDispatchMode):
         # id of a meta tensor made by arange -> (weakref, (start, end,
         # step)): the values a meta tensor does not hold
         self._aranges = {}
+        # id of a DTensor sliced along a sharded dim -> (weakref, version,
+        # the DTensor gathered there): its slices share one gather
+        self._whole = {}
+        # (global shape, dtype) of a tensor ``gather`` read -> its
+        # placements, for the zeros of its gradient
+        self._gathered_from = {}
+
+    def _gathered_for_slice(self, x, dim):
+        """``x`` gathered over the mesh dims that shard ``dim`` (plain or
+        strided shards), once for all of its slices and selections along
+        it while ``x`` is unchanged: DTensor gathered ``x`` whole for each
+        (mamba2's one-token ``in_proj`` output, sharded over ``model``,
+        three times for z, xbc and dt; the SSD states of a sequence
+        sharded over ``model``, their chunks on it, once a chunk of the
+        inter-chunk loop: 128 x 1 GiB a layer of jamba's ``prefill_32k``),
+        where a partitioner moves each piece once."""
+        from torch.distributed.tensor import Replicate
+        over = [i for i, p in enumerate(x.placements)
+                if p.is_shard(dim) or _strided(p, dim)]
+        if not over:
+            return x
+        key = id(x)
+        ref, version, whole = self._whole.get(key, (lambda: None, -1, None))
+        if ref() is x and version == x._version:
+            return whole
+        with torch.no_grad():
+            whole = x.redistribute(x.device_mesh, [
+                Replicate() if i in over else p
+                for i, p in enumerate(x.placements)])
+        self._whole[key] = (
+            weakref.ref(x, lambda _: self._whole.pop(key, None)),
+            x._version, whole)
+        return whole
 
     def _is_arange(self, t, n):
         """``t`` is a meta tensor that ``arange(n)`` made."""
@@ -638,37 +1170,73 @@ class PartitionerPlacements(TorchDispatchMode):
             return func(*args, **kwargs)
         if func in self._PRODUCTS:
             with torch.no_grad():
+                out = _strided_product(func, *args) \
+                    if func in self._PLAIN_PRODUCTS else None
+                if out is not None:
+                    return out
                 args = _product_operands(func, args)
             return func(*args, **kwargs)
+        if func in self._SLICES:
+            dim = (args[1] if len(args) > 1 else kwargs.get("dim", 0)) \
+                % x.ndim
+            return func(self._gathered_for_slice(x, dim), *args[1:],
+                        **kwargs)
         if func in self._INDEX_PUT and len(args[1]) == 2 \
                 and args[1][0] is not None \
                 and self._is_arange(args[1][0], x.shape[0]):
             out = _local_row_write(func, x, *args[1:], **kwargs)
             if out is not None:
                 return out
-        if func is self._SOFTMAX_BACKWARD and isinstance(args[1], DTensor) \
-                and args[0].placements != args[1].placements:
+        if func is self._SOFTMAX:
             with torch.no_grad():
-                args = (_softmax_grad_like(args[0], args[1], args[2]),) \
-                    + tuple(args[1:])
+                out = _sharded_softmax(*args)
+            if out is not None:
+                return out
+        if func is self._LOGSUMEXP:
+            with torch.no_grad():
+                out = _sharded_logsumexp(*args, **kwargs)
+            if out is not None:
+                return out
+        if func is self._SOFTMAX_BACKWARD and isinstance(args[1], DTensor):
+            with torch.no_grad():
+                out = _sharded_softmax_backward(*args[:3])
+                if out is not None:
+                    return out
+                args = (_softmax_grad_like(*args[:2]),) + tuple(args[1:])
             return func(*args, **kwargs)
+        if func is self._GATHER:
+            self._gathered_from[(tuple(x.shape), x.dtype)] = [
+                p if p.is_shard() else Replicate() for p in x.placements]
+        if func is self._SCATTER_ADD:
+            with torch.no_grad():
+                out = _local_scatter_add(*args)
+            if out is not None:
+                return out
         if func is torch.ops.aten.new_zeros.default and \
                 len(args[1]) == x.ndim:
             size = tuple(args[1])
+            dtype = kwargs.get("dtype") or x.dtype
+            like = self._gathered_from.get((size, dtype), [Replicate()]
+                                           * len(x.placements))
             pl = [p if p.is_shard() and size[p.dim] == x.shape[p.dim]
-                  else Replicate() for p in x.placements]
-            return _dtensor_of(torch.zeros, size,
-                               kwargs.get("dtype") or x.dtype,
-                               x.device_mesh, pl, x._local_tensor.device)
+                  else q if p.is_replicate() and q.is_shard()
+                  and size[q.dim] != x.shape[q.dim] else Replicate()
+                  for p, q in zip(x.placements, like)]
+            return _dtensor_of(torch.zeros, size, dtype, x.device_mesh, pl,
+                               x._local_tensor.device)
         if func in (torch.ops.aten.view.default,
                     torch.ops.aten._unsafe_view.default):
             size = list(args[1])
             if -1 in size:
                 k = size.index(-1)
                 size[k] = x.numel() // -math.prod(size)
+            groups = _split_groups(tuple(x.shape), size)
+            out = _strided_split(func, x, size, groups)
+            if out is not None:
+                return out
             for strided in (False, True):
                 gather = set()
-                for src, dst in _split_groups(tuple(x.shape), size):
+                for src, dst in groups:
                     src = [d for d in src if x.shape[d] > 1]
                     dst = [d for d in dst if size[d] > 1]
                     if len(src) == 1 and len(dst) > 1:
@@ -676,8 +1244,7 @@ class PartitionerPlacements(TorchDispatchMode):
                             x, src[0], size[dst[0]], strided))
                 y = x
                 if gather:
-                    pl = [Replicate() if i in gather else p
-                          for i, p in enumerate(x.placements)]
+                    pl = _moved_shards(x, gather, groups, size)
                     with torch.no_grad():
                         y = x.redistribute(x.device_mesh, pl)
                 try:

@@ -189,13 +189,17 @@ class OpAnalyzer(TorchDispatchMode):
         for t in tensors:
             self._add(t.to_local() if isinstance(t, DTensor) else t)
 
-    def _add(self, t):
+    def _add(self, t, own=False):
+        """Count ``t``'s storage as live; ``own``: only ``t``'s own bytes
+        (a collective's output, which the meta kernel may leave a view of
+        a larger buffer that the device's kernel never allocates: the fake
+        all-to-all narrows the whole group's concatenation)."""
         st = t.untyped_storage()
         key = id(st)
         with self._lock:
             if key in self._live:
                 return
-            n = st.nbytes()
+            n = _nbytes(t) if own else st.nbytes()
 
             def freed(_, key=key, n=n):
                 with self._lock:
@@ -243,8 +247,9 @@ class OpAnalyzer(TorchDispatchMode):
             self.bytes += nb
             if torch.Tag.pointwise in func.tags:
                 self.flops += sum(t.numel() for t in outs)
+        own = func.namespace in ("_c10d_functional", "_dtensor")
         for t in outs:
-            self._add(t)
+            self._add(t, own)
 
     def stats(self) -> ModuleStats:
         cb: Dict[str, float] = {}

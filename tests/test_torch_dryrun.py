@@ -409,6 +409,17 @@ def _case(arch, kind, mesh=(4, 2), seq=128, batch=8, over=None, id=None):
     # AdamW's new params and moments as whole trees beside the state
     # (1.561x)
     _case("mixtral-8x22b", "train", seq=16, id="mixtral-8x22b-train-seq-16"),
+    # a train step on the (pod, data, model) mesh: DTensor's planner took
+    # over 15 minutes here while the strided query shard of the scores'
+    # gradient was gathered
+    _case("qwen2-72b", "train", mesh=(2, 2, 2), seq=64,
+          id="qwen2-72b-train-multi-pod"),
+    # one sequence and a 2048-slot cache, as at long_500k: the cache's
+    # sequence on data, which cannot split the batch
+    *[_case(arch, "decode", seq=2048, batch=1,
+            id=f"{arch}-decode-one-sequence")
+      for arch in ("qwen3-14b", "mamba2-1.3b", "jamba-v0.1-52b",
+                   "mixtral-8x22b")],
 ])
 def test_small_mesh_dry_run(case):
     """Small-mesh cases on 8 fake ranks, each in a process of its own,
@@ -424,23 +435,37 @@ def test_small_mesh_dry_run(case):
     The bars, and the readings they were set from (this CPU, torch 2.13,
     per rank, port over the share or the reference):
       * matmul FLOPs from 1 to 1.2 times the rank's share of the one-rank
-        trace: 1.000 to 1.036 now; the long-cache decode and the
+        trace: 1.000 to 1.113 now; the long-cache decode and the
         4097-vocab decode read 1.296 and 1.565 before the cache write and
-        the lm head were placed as XLA places them;
-      * matmul FLOPs at most 1.05 times the reference's HLO dots: 0.646 to
-        1.035 now (qwen3's train step and the 4097 vocab lie under them:
-        XLA repeats part of the work);
-      * peak at most 1.25 times the compiled program's: 0.33 to 0.88 now
-        (0.49 for the 4097 vocab, which read 1.757); the 24-layer mamba2
+        the lm head were placed as XLA places them; the one-sequence
+        decodes of qwen3, mamba2, jamba and mixtral read 2.000, 3.605,
+        1.605 and 1.188 while every weight was gathered over ``data``,
+        which cannot split one sequence (1.000, 1.113, 1.032 and 1.000
+        with the weights kept on their shards);
+      * matmul FLOPs at most 1.05 times the reference's HLO dots: 0.536 to
+        0.999 now (qwen3's train step, the 4097 vocab and the one-sequence
+        decodes lie under them: XLA repeats part of the work); the
+        one-sequence decodes read 1.457, 1.737, 1.128 and 1.055 before;
+      * peak at most 1.25 times the compiled program's: 0.33 to 0.998 now
+        (0.48 for the 4097 vocab, which read 1.757); the 24-layer mamba2
         prefill, the 32-layer mamba2 decode and the mixtral train step
         read 1.795, 1.356 and 1.561 while the conv tail was a view of
         xbc, the decode restacked its cache and AdamW built new trees
-        (0.516, 0.595 and 0.882 with the buffers reused; the mixtral
+        (0.478, 0.594 and 0.882 with the buffers reused; the mixtral
         step also with the all-to-all of ``card_alltoall``, whose
-        all-gather fallback held 1.659);
+        all-gather fallback held 1.659); mamba2's one-sequence decode
+        read 1.769 with its ``in_proj`` gathered (0.998 now);
       * link bytes at most 1.25 times the reference's ring-model bytes:
-        0.16 to 0.79 now; the long-cache decode read 13.3 and the 4097
-        vocab 1.76 before."""
+        0.16 to 0.96 now; the long-cache decode read 13.3 and the 4097
+        vocab 1.76 before; the one-sequence decodes read 71.8, 72.5, 36.0
+        and 8.5 with the weights gathered, the scores gathered whole over
+        their key shards and the embedding table's shard moved by an
+        all-to-all before the token lookup (0.60, 0.91, 0.62 and 0.52
+        now);
+      * the qwen2 train step on (2, 2, 2) reads 1.000 of the share, 0.949
+        of the dots, peak 0.698 and link bytes 0.69; before the strided
+        products were placed on their shards it did not trace within this
+        test's 300 s limit (over 15 minutes, DTensor's planner)."""
     env = dict(os.environ, PYTHONPATH=f"{REPO}/src")
     port = _last_json(SCRIPT % case, env)
     ref = _last_json(REF_SCRIPT % case, dict(env, JAX_PLATFORMS="cpu"))

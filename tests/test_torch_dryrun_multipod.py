@@ -13,14 +13,21 @@ clone of half of it, 1,578.88 GiB a rank against the reference's 222.1
 (``launch.dryrun.remat_under`` now enters the modes in the recomputation).
 What flipped DTensor's choice is the ``data`` dim's size: on (2, 2, 16)
 with the same 8 sequences a rank it gathered the weight (2 ranks) and
-kept the batch's shards. A whole multi-pod train step takes 10–25 minutes
-to trace here (``tools/dryrun_peak.py`` prints what it holds at its
-peak), so the tests below hold the two causes of its peak one op at a
-time, in seconds, on a (2, 2, 2) mesh: the recomputation's weight
-gather, and softmax's backward on the forward's shards (by query over
-``model``, where DTensor gathered every query's scores).
+kept the batch's shards. The tests below hold the causes of the
+multi-pod peak one op at a time, in seconds (``tools/dryrun_peak.py``
+prints what a whole step holds at its peak): the recomputation's weight
+gather; softmax's backward on the forward's shards (by query over
+``model``, where DTensor gathered every query's scores); the products
+over strided shards that a view merging a sharded minor dim makes (the
+q-gradient of the scores, a batch of merged heads or chunks) and the
+view back; a head view that 16 does not divide; the cross-entropy over
+a sharded vocab; and queries sharded by sequence meeting keys sharded
+otherwise. With them a smoke train step on (2, 2, 2) traces in ~30 s
+(over 15 minutes before), and ``test_small_mesh_dry_run`` holds it
+whole.
 """
 import json
+import math
 import os
 import sys
 import time
@@ -119,9 +126,10 @@ class _Largest(OA.OpAnalyzer):
         self.largest = 0
         _Largest.last = self
 
-    def _add(self, t):
-        super()._add(t)
-        self.largest = max(self.largest, t.untyped_storage().nbytes())
+    def _add(self, t, own=False):
+        super()._add(t, own)
+        self.largest = max(self.largest,
+                           self._live[id(t.untyped_storage())][1])
 
 
 @pytest.mark.parametrize("grad_dim", [2, 3])
@@ -149,3 +157,183 @@ def test_softmax_backward_keeps_the_forward_shards(monkeypatch, grad_dim):
         D.trace(step, (s, dw), mesh)
     shard = 8 // 4 * 4 * 64 // 2 * 64 * 4
     assert _Largest.last.largest == shard
+
+
+@pytest.mark.parametrize("mesh_shape", [(2, 2), (2, 2, 2)])
+def test_query_gradient_product_keeps_the_strided_query_shard(
+        monkeypatch, mesh_shape):
+    """The scores ``einsum("bqkgh,bskh->bkgqs", q, k)`` of one attention
+    layer with its gradient sharded by query over ``model`` (as softmax's
+    backward leaves it), batch over the other mesh dims: the products of
+    q's and k's gradients merge (group, query) into one dim, on which the
+    query shard becomes a strided shard. Both products run on the rank's
+    shards: no storage is larger than a rank's partial scores of the
+    forward, the only gather is k's, and each product does a rank's share
+    of the FLOPs. Before, DTensor had no product rule for the strided
+    shard and gathered the gradient whole over ``model`` for each (3 x
+    8.59e9 B a rank in one full-width qwen2-72b layer on (2, 2, 16), 3.31x
+    the reference's peak)."""
+    monkeypatch.setattr(D, "OpAnalyzer", _Largest)
+    b, q, k, g, h = 4, 64, 2, 2, 16
+    with D.fake_world(math.prod(mesh_shape)):
+        mesh = make_local_mesh(*mesh_shape[-2:], pod=(
+            mesh_shape[0] if len(mesh_shape) == 3 else 0), device_type="cpu")
+        batch = (Shard(0),) * (len(mesh_shape) - 1)
+        qg = D.meta_dtensor((b, q, k, g, h), torch.float32, mesh,
+                            batch + (Replicate(),))
+        kk = D.meta_dtensor((b, q, k, h), torch.float32, mesh,
+                            batch + (Shard(3),))
+        ds = D.meta_dtensor((b, k, g, q, q), torch.float32, mesh,
+                            batch + (Shard(3),))
+        grads = []
+
+        def step(qg, kk, ds):
+            leaves = [t.detach().requires_grad_() for t in (qg, kk)]
+            with torch.enable_grad():
+                s = torch.einsum("bqkgh,bskh->bkgqs", *leaves)
+                grads.extend(torch.autograd.grad(s, leaves, grad_outputs=ds))
+        st = D.trace(step, (qg, kk, ds), mesh)
+    assert [tuple(t.shape) for t in grads] == [(b, q, k, g, h), (b, q, k, h)]
+    n = math.prod(mesh_shape)
+    rows = b // (n // 2)                          # a rank's sequences
+    assert _Largest.last.largest == rows * k * g * q * q * 4
+    assert st.collective_bytes == {"all-gather": rows * k * q * h * 4}
+    one = 2 * b * k * g * q * q * h               # one product, one rank
+    assert st.matmul_flops == 3 * one / n
+
+
+def test_uneven_head_view_moves_the_shard_to_the_sequence(monkeypatch):
+    """Queries (b, s, 12 heads, hd), their heads over 4 ``model`` ranks,
+    viewed as (kv heads 6, group 2), which 4 does not divide: the ``model``
+    shard moves to the sequence (an all-to-all of a rank's queries) and
+    the view keeps a rank's share, so the attention after it runs on
+    query shards. Before, the heads were gathered whole on each rank (the
+    scores of every query then partial over ``model``: 2.1e10 B a rank in
+    one full-width qwen2-72b layer on (2, 2, 16), 2.4x the reference's
+    peak)."""
+    monkeypatch.setattr(D, "OpAnalyzer", _Largest)
+    b, s, h, kh, hd = 2, 64, 12, 6, 16
+    out = []
+    with D.fake_world(8):
+        mesh = make_local_mesh(2, 4, device_type="cpu")
+        q = D.meta_dtensor((b, s, h, hd), torch.float32, mesh,
+                           (Shard(0), Shard(2)))
+        st = D.trace(lambda q: out.append(q.reshape(b, s, kh, h // kh, hd)),
+                     (q,), mesh)
+    assert out[0].shape == (b, s, kh, h // kh, hd)
+    assert list(out[0].placements) == [Shard(0), Shard(1)]
+    share = b // 2 * s * h * hd * 4 // 4
+    assert st.collective_bytes == {"all-to-all": share}
+    assert _Largest.last.largest == share
+
+
+def test_cross_entropy_over_a_sharded_vocab_keeps_the_shards(monkeypatch):
+    """A train step's cross-entropy on logits (b, s, V) with the vocab
+    over ``model``: ``logsumexp`` reduces (b, s, 1) statistics over the
+    vocab's shards, and the gradient of the gold logit's ``gather`` (zeros
+    of the logits' shape, then ``scatter_add``) keeps the vocab's shards,
+    each rank adding the labels in its columns. No storage is larger than
+    a rank's shard of the logits. Before, DTensor gathered the logits whole
+    over the vocab for ``logsumexp`` and made the gradient's zeros whole
+    (5 x 4.98e9 B a rank in one full-width qwen2-72b layer on (2, 2,
+    16))."""
+    from repro_torch.train.steps import cross_entropy
+    monkeypatch.setattr(D, "OpAnalyzer", _Largest)
+    b, s, v = 4, 32, 1024
+    grads = []
+    with D.fake_world(8):
+        mesh = make_local_mesh(2, 2, pod=2, device_type="cpu")
+        logits = D.meta_dtensor((b, s, v), torch.float32, mesh,
+                                (Shard(0), Shard(0), Shard(2)))
+        labels = D.meta_dtensor((b, s), torch.int64, mesh,
+                                (Shard(0), Shard(0), Replicate()))
+
+        def step(logits, labels):
+            leaf = logits.detach().requires_grad_()
+            with torch.enable_grad():
+                loss = cross_entropy(leaf, labels)
+                grads.extend(torch.autograd.grad(loss, [leaf]))
+        st = D.trace(step, (logits, labels), mesh)
+    assert list(grads[0].placements) == [Shard(0), Shard(0), Shard(2)]
+    shard = b // 4 * s * v // 2 * 4
+    assert _Largest.last.largest == shard
+    assert "all-gather" not in st.collective_bytes
+
+
+@pytest.mark.parametrize("k_dim", [1, 2])
+def test_scores_of_sequence_sharded_queries_gather_the_keys(k_dim):
+    """Attention's scores (b·h, q, hd) @ (b·h, hd, s) with the queries
+    sharded by sequence over ``model`` and the keys by hd or by key (12
+    heads, which 16 ranks do not divide, as in whisper): the keys are
+    gathered and the scores keep the query shard, with no reduction.
+    Before, DTensor moved both operands to a shard of hd and reduced
+    partial scores (99% of whisper's ``prefill_32k`` link bytes on the
+    multi-pod mesh, 5.03x the reference's), or to a shard of the batch
+    where ``model`` divides it."""
+    bh, q, hd, s = 8, 2048, 64, 2048
+    with D.fake_world(8):
+        mesh = make_local_mesh(2, 4, device_type="cpu")
+        a = D.meta_dtensor((bh, q, hd), torch.float32, mesh,
+                           (Shard(0), Shard(1)))
+        b = D.meta_dtensor((bh, hd, s), torch.float32, mesh,
+                           (Shard(0), Shard(k_dim)))
+        out = []
+        st = D.trace(lambda a, b: out.append(torch.bmm(a, b)), (a, b), mesh)
+    assert list(out[0].placements) == [Shard(0), Shard(1)]
+    assert st.collective_bytes == {"all-gather": bh // 2 * hd * s * 4}
+    assert st.matmul_flops == 2 * bh * q * s * hd / 8
+
+
+@pytest.mark.parametrize("other", ["replicated", "by-row"])
+def test_product_over_a_strided_batch_stays_on_its_shards(other):
+    """Products that merge (batch, chunks, heads) or (batch, heads) into
+    one batch dim with the heads sharded over ``model``: a strided shard
+    of the batch. The product runs on each rank's batch, the other operand
+    moved to it (a local slice where it is replicated over ``model``; a
+    gather of it where it is sharded there by row), and the view back to
+    (batch, ..., heads) keeps the heads' shard. Before, DTensor gathered
+    the strided operand whole (12 x 4.3 GB a rank of jamba's
+    ``prefill_32k``) and replicated the heads in the view back (the
+    scores of one full-width phi-3 layer's train step on (2, 2, 16), 4.3e9
+    B a rank)."""
+    b, z, h, c, p = 2, 4, 8, 16, 4
+    with D.fake_world(8):
+        mesh = make_local_mesh(2, 4, device_type="cpu")
+        cb = D.meta_dtensor((b, z, h, c, c), torch.float32, mesh,
+                            (Shard(0), Shard(2)))
+        x = D.meta_dtensor((b * z * h, c, p), torch.float32, mesh, (
+            Shard(0), Replicate() if other == "replicated" else Shard(1)))
+        out = []
+        st = D.trace(lambda cb, x: out.append(torch.bmm(
+            cb.reshape(b * z * h, c, c), x).view(b, z, h, c, p)),
+            (cb, x), mesh)
+    assert out[0].shape == (b, z, h, c, p)
+    assert list(out[0].placements) == [Shard(0), Shard(2)]
+    moved = {} if other == "replicated" else {
+        "all-gather": b * z * h // 2 * c * p * 4}
+    assert st.collective_bytes == moved
+    assert st.matmul_flops == 2 * b * z * h * c * c * p / 8
+
+
+def test_strided_rows_meeting_a_vocab_sharded_table_gather_the_rows():
+    """An lm head: rows of sequences sharded over ``model`` merged under
+    the batch (a strided shard of the rows) against a table whose vocab
+    lies on ``model``. The rows, the smaller operand, are gathered and the
+    logits keep the vocab's shard, as DTensor alone does for this
+    product. The rule that keeps a strided shard of the rows must not
+    gather the table instead: written so, it held the table whole on each
+    rank (4.98e9 B a rank for one full-width qwen2-72b layer on (2, 2,
+    16))."""
+    b, s, d, v = 4, 64, 32, 1024
+    with D.fake_world(8):
+        mesh = make_local_mesh(2, 4, device_type="cpu")
+        x = D.meta_dtensor((b, s, d), torch.float32, mesh,
+                           (Shard(0), Shard(1)))
+        w = D.meta_dtensor((d, v), torch.float32, mesh,
+                           (Replicate(), Shard(1)))
+        out = []
+        st = D.trace(lambda x, w: out.append(torch.einsum(
+            "bsd,dv->bsv", x, w)), (x, w), mesh)
+    assert list(out[0].placements) == [Shard(0), Shard(2)]
+    assert st.collective_bytes == {"all-gather": b // 2 * s * d * 4}
+    assert st.matmul_flops == 2 * b * s * d * v / 8

@@ -98,14 +98,14 @@ def main(argv=None) -> int:
                         state["dtensor_op"])
             super()._account(func, args, outs)
 
-        def _add(self, t):
+        def _add(self, t, own=False):
             key = id(t.untyped_storage())
             if key not in self._live:
                 self.made[key] = self._op or (
                     "argument", [tuple(t.shape)],
                     str(t.dtype).replace("torch.", ""), None)
             before = self.peak
-            super()._add(t)
+            super()._add(t, own)
             if self.peak > before:
                 self.at_peak = [(n, self.made.get(k))
                                 for k, (_, n) in self._live.items()]
