@@ -91,6 +91,18 @@ Phases, each printing its own line; any failure exits non-zero:
                   custom ops over meta tensors) against the same prefill
                   on the card, which launches K4 48 times and K5 twice:
                   matmul FLOPs equal, peak within DRY_PEAK_BAR;
+ 12. sharded dry run — the dry run on this machine's torch over ``cuda``
+                  meshes of fake ranks, each case in a process of its own:
+                  the thirteen small-mesh cases of ``tools/dryrun_small.py``
+                  (8 ranks; matmul FLOPs 1 to 1.2 times a rank's share of
+                  the one-rank trace, at most 1.05 times the JAX
+                  package's dots, peak and link bytes at most 1.25 times
+                  its figures) and mamba2-1.3b ``train_4k`` on the
+                  256-rank mesh and mixtral-8x22b ``decode_32k`` on the
+                  512-rank one at full width (FLOPs and peak at most 1.25
+                  times the JAX package's record, link bytes at most 4
+                  times); the JAX package's figures from
+                  ``tests/dryrun_reference.json``;
 and then the ``kernels`` JSON line, the card's name and power limit, and
 the result line. Each path runs with every launch count set to 0 just
 before it and read just after. Details go to
@@ -1419,10 +1431,8 @@ def train_phase(torch, reset_counts, read_counts):
 # them through their fake implementations over meta tensors, in a process
 # of its own, and bills each by the reference grid's products; the card
 # side launches them, and those launches are the kernels line's
-# phase11_launches), and the sharded restore. The production dry runs
-# (256 and 512 fake ranks) are not run here: torch 2.11's DTensor cannot
-# shard the port's steps (ROADMAP section 3 lists its refusals;
-# tools/dryrun_probe.py asks again).
+# phase11_launches), and the sharded restore. Phase 12 traces the sharded
+# dry runs themselves on this machine's torch (sharded_dryrun_phase).
 DRY_ARCH, DRY_SHAPE = "mamba2-1.3b", ("chip_train", 1024, 4, "train")
 DRY_PEAK_BAR = 0.10
 DRY_TIMEOUT_S = 300
@@ -1476,6 +1486,111 @@ def _free_port() -> int:
     with socket.socket() as s:
         s.bind(("localhost", 0))
         return s.getsockname()[1]
+
+
+# Phase 12: the sharded dry run on this machine's torch, on cuda meshes of
+# fake ranks (the shards are meta: no card is used), each case in a
+# process of its own (a process group is per process), SHARDED_JOBS at
+# once, each within DRY_TIMEOUT_S: the small-mesh cases of
+# tools/dryrun_small.py (their mesh and a one-rank trace of the same step)
+# held to tests/test_torch_dryrun.py's four bars against the JAX package's
+# figures committed in tests/dryrun_reference.json, and two production
+# cases at full width held to tools/dryrun_compare.py's bars against the
+# JAX package's sweep records committed there.
+SHARDED_JOBS = 6
+SHARDED_PRODUCTION = ("mamba2-1.3b:train_4k:single",
+                      "mixtral-8x22b:decode_32k:multi")
+SHARDED_ONE = """
+import json
+from repro_torch.launch import dryrun as D
+print(json.dumps(D.run_one(%(arch)r, %(shape)r, %(mesh)r, device=%(device)r)))
+"""
+
+
+def _pooled(jobs, n):
+    """Run ``jobs`` ({name: argv}) as processes, ``n`` at once, each within
+    DRY_TIMEOUT_S; {name: (stdout, wall seconds)}. A process that fails
+    or overruns raises, after every process has ended."""
+    todo, running, out, bad = list(jobs), {}, {}, []
+    while todo or running:
+        while todo and len(running) < n:
+            name = todo.pop(0)
+            running[name] = (time.perf_counter(), _spawn(jobs[name]))
+        time.sleep(0.2)
+        for name, (t0, proc) in list(running.items()):
+            wall = time.perf_counter() - t0
+            if proc.poll() is None and wall < DRY_TIMEOUT_S:
+                continue
+            del running[name]
+            try:
+                out[name] = (_collect(proc, name), wall)
+            except AssertionError as e:
+                bad.append(str(e)[-1500:])
+    if bad:
+        raise AssertionError("phase 12: " + " | ".join(bad))
+    return out
+
+
+def sharded_dryrun_phase(torch, device="cuda"):
+    """Phase 12: the sharded dry run (``repro_torch.launch.dryrun``) on
+    this machine's torch, on ``cuda`` meshes of fake ranks: the thirteen
+    small-mesh cases of ``tools/dryrun_small.py``, each held to its four
+    bars (matmul FLOPs from 1 to 1.2 times a rank's share of the one-rank
+    trace run here, at most 1.05 times the reference's dots, peak and link
+    bytes at most 1.25 times the reference's), and the production cases
+    of SHARDED_PRODUCTION at full width, held to
+    ``tools/dryrun_compare.py``'s bars (FLOPs and peak at most 1.25 times
+    the reference's, link bytes at most 4 times). The reference's figures
+    are the JAX package's, committed in ``tests/dryrun_reference.json``
+    (this machine has no JAX). One line a case; every failed case fails
+    the phase, after all have run. ``device``: the meshes' device type
+    (``cpu`` rehearses the phase on a torch without CUDA)."""
+    sys.path.insert(0, str(ROOT / "tools"))
+    import dryrun_compare as DC
+    import dryrun_small as DS
+    yard = json.loads((ROOT / "tests" / "dryrun_reference.json").read_text())
+    jobs = {}
+    for case in SHARDED_PRODUCTION:          # the longest first
+        arch, shape, mesh = case.split(":")
+        jobs[case] = [sys.executable, "-c", SHARDED_ONE % {
+            "arch": arch, "shape": shape, "mesh": mesh, "device": device}]
+    jobs.update({c["id"]: [sys.executable,
+                           str(ROOT / "tools" / "dryrun_small.py"),
+                           "--device", device, c["id"]] for c in DS.CASES})
+    t0 = time.perf_counter()
+    done = _pooled(jobs, SHARDED_JOBS)
+    out, bad = {"cases": {}}, []
+    for name, (text, wall) in done.items():
+        rec = json.loads(text.strip().splitlines()[-1])
+        if name in DS.BY_ID:
+            ratios, fails = DS.bars(rec, yard["small"][name])
+            trace_s = [rec[k].get("trace_s") for k in ("mesh", "one")]
+        else:
+            key = "__".join(name.split(":"))
+            fails = [] if rec["status"] == "ok" else [
+                f"{rec['status']}: {rec.get('error')}"]
+            ratios = DC.ratios(rec, yard["production"][key]) if not fails \
+                else {}
+            fails += [f"{k} {v:.4f} x the reference's (bar {DC.BARS[k]})"
+                      for k, v in ratios.items() if v > DC.BARS[k]]
+            trace_s = [rec.get("trace_s")]
+        out["cases"][name] = {"ok": not fails, "trace_s": trace_s,
+                              "wall_s": wall, "ratios": ratios,
+                              "failures": fails}
+        print(f"[12 sharded dry run] {name}: "
+              f"{'ok' if not fails else 'FAILED'}, trace {trace_s} s "
+              f"({wall:.1f} s wall); " + ", ".join(
+                  f"{k} {v:.4f}" for k, v in ratios.items())
+              + ("; " + "; ".join(fails) if fails else ""), flush=True)
+        if fails:
+            bad.append(f"{name}: {'; '.join(fails)}")
+    out["phase_s"] = time.perf_counter() - t0
+    print(f"[12 sharded dry run] {len(done)} cases on torch "
+          f"{torch.__version__} ({device} meshes) in {out['phase_s']:.1f} s, "
+          f"{SHARDED_JOBS} at once; failed {len(bad)}")
+    if bad:
+        raise AssertionError("phase 12: " + " | ".join(bad))
+    return out
 
 
 def dryrun_phase(torch, reset_counts, read_counts):
@@ -2378,6 +2493,10 @@ def main() -> int:
     t0 = time.perf_counter()
     report["dryrun"] = dryrun_phase(torch, reset_counts, read_counts)
     report["dryrun_s"] = time.perf_counter() - t0
+    # -- phase 12: the sharded dry run on this machine's torch ----------
+    t0 = time.perf_counter()
+    report["sharded_dryrun"] = sharded_dryrun_phase(torch)
+    report["sharded_dryrun_s"] = time.perf_counter() - t0
     dry_launches = report["dryrun"]["phase_launches"]
     train_launches = report["train"]["hfl"]["launches"]
     k4_main = report["serve"]["mamba2-1.3b"]["launches"][3]

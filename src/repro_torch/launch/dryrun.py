@@ -19,17 +19,26 @@ program, no card needed: the shards are meta) or ``cpu``
 tables, masks, positions) meet the DTensors as replicated
 (``implicit_replication``). DTensor places each op by itself; three
 modes make its per-rank program the one XLA's partitioner makes from the
-whole step: ``FsdpGather`` gathers a weight's ``data`` (FSDP storage)
+whole step (and that torch 2.11's DTensor, the card machine's, and 2.13's
+both trace, op for op the same): ``FsdpGather`` gathers a weight's
+``data`` (FSDP storage)
 shard before each product and lookup where ``data`` splits the batch (one
 sequence leaves the weights on their shards and reduces the partial
 products; a decode step's embedding table stays sharded and its rows
-move), ``HeadRepeat`` keeps a group repeated out to the heads sharded
-over ``model``, and ``PartitionerPlacements`` keeps ``new_zeros``
-sharded, gathers a dim before a view splits it unevenly, reduces partial
-sums before a product, splits a product that would be repeated on every
-``model`` rank, writes the decode cache on each rank's own rows, reduces
-a softmax over sharded keys by its statistics, and gathers a tensor
-once for all its slices. ``tests/test_torch_dryrun.py`` holds the
+move; the lm head's chunks of a table are taken of each rank's rows),
+``HeadRepeat`` keeps a group repeated out to the heads sharded over
+``model``, and ``PartitionerPlacements`` keeps ``new_zeros`` sharded,
+gathers a dim before a view splits it unevenly, merges dims into a
+strided shard, reduces partial sums before a product, splits a product
+that would be repeated on every ``model`` rank, runs K5 on each rank's
+query heads where ``model`` does not divide the kv heads, writes the
+decode cache on each rank's own rows, reduces a softmax over sharded keys
+by its statistics, gathers a tensor once for all its slices, and places
+``flip``, ``constant_pad_nd``, ``index_add``, a lookup's gradient, a
+lookup in a row-sharded table, a gather from a sharded dim and a partial
+plus a sharded sum itself (torch 2.11 has no rule, or a faulty one, for
+each). Its redistributions run below autograd on specs that read a
+strided shard as a shard (:func:`_moved`). ``tests/test_torch_dryrun.py`` holds the
 per-rank matmul FLOPs, peak and link bytes against the one-rank trace of
 the same step and against the JAX package's compiled program on a (4, 2)
 mesh. The kernel routes (``attn_impl="flash"``, ``ssm_impl="pallas"``)
@@ -61,6 +70,7 @@ import weakref
 
 import torch
 from torch.overrides import TorchFunctionMode
+from torch.utils import _pytree as pytree
 from torch.utils._python_dispatch import TorchDispatchMode
 
 from repro_torch.configs import ARCH_IDS, INPUT_SHAPES, get_config
@@ -117,9 +127,9 @@ def meta_dtensor(shape, dtype, mesh, placements):
     """A DTensor of global ``shape`` over a ``meta`` local shard; on a
     one-rank mesh, where every placement replicates and DTensor adds
     nothing, the plain ``meta`` tensor. The one-rank trace is what
-    ``chip_smoke.py`` phase 11 holds against the card, whose torch 2.11
-    has no DTensor rule for some of the step's ops (``flip``); DTensor
-    is exercised by the sharded meshes of the CPU tests."""
+    ``chip_smoke.py`` phase 11 holds against the card; phase 12 traces the
+    sharded meshes on the card machine's torch (2.11), the CPU tests on
+    this one's."""
     if mesh.size() == 1:
         return torch.empty(tuple(shape), dtype=dtype, device="meta")
     return _dtensor_of(torch.empty, shape, dtype, mesh, placements, "meta")
@@ -251,7 +261,17 @@ class FsdpGather(TorchFunctionMode):
       a rank at ``decode_32k``.
 
     The recomputation of a rematerialised layer runs under this mode too
-    (:func:`remat_under`)."""
+    (:func:`remat_under`).
+
+    The lm head over chunks of the vocab (``models.model.LOGITS_CHUNK``,
+    a decode step's) slices a table whose vocab is sharded on ``model``:
+    DTensor gathered the vocab for the slices, and each ``model`` rank
+    then computed every chunk's product whole (qwen3-14b's ``decode_32k``:
+    1.43x the matmul FLOPs of the one product). Here a chunk is taken of
+    each rank's own rows (:func:`_local_chunk`), and the chunks' logits,
+    concatenated in order, are the rank's own columns again
+    (:meth:`_chunk_cat`): a rank casts one chunk of its shard at a time,
+    as XLA fuses the casts into the dot."""
 
     _PRODUCTS = {torch.matmul, torch.Tensor.matmul, torch.bmm,
                  torch.Tensor.bmm, torch.mm, torch.Tensor.mm,
@@ -265,6 +285,13 @@ class FsdpGather(TorchFunctionMode):
 
     def __init__(self, weights, fsdp, tables=()):
         super().__init__()
+        # id -> weakref of the chunks of a table taken by _local_chunk, and
+        # of what casts and views make of them; and of the products they
+        # enter
+        self._chunks, self._chunk_products = {}, {}
+        # (id of an activation, placements) -> (weakref, the activation
+        # moved there for a chunk's product)
+        self._moved_acts = {}
         # storage address -> (weakref, is a table): an address is dropped
         # when its storage is freed, before a new storage can take it
         self._w = {}
@@ -360,10 +387,93 @@ class FsdpGather(TorchFunctionMode):
             return t
         return t.redistribute(t.device_mesh, pl)
 
+    @staticmethod
+    def _note(book, ts):
+        for t in ts if isinstance(ts, (list, tuple)) else (ts,):
+            if isinstance(t, torch.Tensor):
+                key = id(t)
+                book[key] = weakref.ref(t, lambda _, k=key: book.pop(k, None))
+
+    @staticmethod
+    def _in(book, t):
+        ref = book.get(id(t))
+        return ref is not None and ref() is t
+
+    def _chunk_cat(self, ts, dim=0):
+        """``torch.cat(ts, dim)`` of the logits of a table's chunks
+        (:func:`_local_chunk`) along the chunked dim: each rank's pieces
+        in order are its own columns, so the cat is the local one. None
+        where ``ts`` are not such logits sharded alike on ``dim``."""
+        from torch._prims_common import make_contiguous_strides_for
+        from torch.distributed.tensor import DTensor
+        ts = list(ts)
+        if not ts or not all(isinstance(t, DTensor)
+                             and self._in(self._chunk_products, t)
+                             for t in ts):
+            return None
+        dim %= ts[0].ndim
+        pl = list(ts[0].placements)
+        if any(list(t.placements) != pl for t in ts) \
+                or not any(p.is_shard(dim) for p in pl):
+            return None
+        shape = list(ts[0].shape)
+        shape[dim] = sum(t.shape[dim] for t in ts)
+        return DTensor.from_local(
+            torch.cat([t._local_tensor for t in ts], dim),
+            ts[0].device_mesh, pl, run_check=False, shape=torch.Size(shape),
+            stride=make_contiguous_strides_for(shape))
+
+    def _chunk_activations(self, ops, eq):
+        """The einsum ``eq``'s activations where one operand is a table's
+        chunk, moved once for all the chunks: on a mesh dim that shards a
+        dim the chunk contracts, the activation takes the shard on its dim
+        of that letter, and its partial sums are reduced. DTensor moved
+        the activation anew for each chunk's product (a smoke mamba2
+        decode of a 4097 vocab in 33 chunks on (4, 2): 1.38x the link
+        bytes of the one product)."""
+        from torch.distributed.tensor import DTensor, Replicate, Shard
+        chunks = [a for a in ops if self._in(self._chunks, a)]
+        if len(chunks) != 1 or "." in eq or "->" not in eq:
+            return tuple(ops)
+        ins, out = eq.replace(" ", "").split("->")
+        ins = ins.split(",")
+        ws = ins[[a is chunks[0] for a in ops].index(True)]
+        moved = []
+        for s, a in zip(ins, ops):
+            if not isinstance(a, DTensor) or a is chunks[0]:
+                moved.append(a)
+                continue
+            pl = [Replicate() if p.is_partial() else p for p in a.placements]
+            for i, p in enumerate(chunks[0].placements):
+                if p.is_shard() and ws[p.dim] not in out and ws[p.dim] in s:
+                    pl[i] = Shard(s.index(ws[p.dim]))
+            key = (id(a), tuple(pl))
+            ref, to = self._moved_acts.get(key, (lambda: None, None))
+            if ref() is not a:
+                to = a if pl == list(a.placements) else \
+                    a.redistribute(a.device_mesh, pl)
+                self._moved_acts[key] = (weakref.ref(
+                    a, lambda _, k=key: self._moved_acts.pop(k, None)), to)
+            moved.append(to)
+        return tuple(moved)
+
     def __torch_function__(self, func, types, args=(), kwargs=None):
         from torch.distributed.tensor import DTensor
         kwargs = kwargs or {}
         keep = ()
+        if func is torch.Tensor.__getitem__ and self._is_table(args[0]) \
+                and not torch.is_grad_enabled() \
+                and not isinstance(args[1], torch.Tensor):
+            # a chunk of the lm head's table (a view of its storage)
+            out = _local_chunk(*args[:2])
+            if out is None:
+                out = func(*args, **kwargs)
+            self._note(self._chunks, out)
+            return out
+        if func is torch.cat:
+            out = self._chunk_cat(*args, **kwargs)
+            if out is not None:
+                return out
         lookup = func is torch.Tensor.__getitem__ and \
             isinstance(args[1], torch.Tensor)
         if lookup and self._fewer_rows(*args[:2]):
@@ -377,7 +487,7 @@ class FsdpGather(TorchFunctionMode):
             ops = args[1] if len(args) == 2 and \
                 isinstance(args[1], (list, tuple)) else args[1:]
             ops, keep = self._gathered(ops, args[0])
-            args = (args[0],) + ops
+            args = (args[0],) + self._chunk_activations(ops, args[0])
         elif func in self._PRODUCTS:
             args, keep = self._gathered(args)
         out = _reduced(func(*args, **kwargs), keep)
@@ -386,6 +496,12 @@ class FsdpGather(TorchFunctionMode):
             for t in (out if isinstance(out, (list, tuple)) else (out,)):
                 if isinstance(t, DTensor):
                     self._mark(t, table)
+            if self._in(self._chunks, args[0]):
+                self._note(self._chunks, out)
+        if (func is torch.einsum or func in self._PRODUCTS) and any(
+                self._in(self._chunks, a) for a in
+                (args[1:] if func is torch.einsum else args)):
+            self._note(self._chunk_products, out)
         return out
 
 
@@ -441,6 +557,109 @@ def _local_repeat(x, rep, dim):
                       for j, p in enumerate(x.placements)],
         run_check=False, shape=torch.Size(shape),
         stride=make_contiguous_strides_for(tuple(shape)))
+
+
+def _local_chunk(table, key):
+    """``table[key]`` where ``key`` slices one dim that plain shards split
+    over mesh dims of ``m`` ranks, at bounds that ``m`` divides: each rank
+    takes rows ``[lo / m, hi / m)`` of its own shard, and the chunk keeps
+    the table's placements (its rows are every rank's piece of the
+    chunk's share, not the table's rows ``[lo, hi)``; the chunks in order
+    hold each rank's own rows again). None for any other key or
+    placement."""
+    from torch._prims_common import make_contiguous_strides_for
+    from torch.distributed.tensor import DTensor
+    key = key if isinstance(key, tuple) else (key,)
+    if len(key) > table.ndim or not all(isinstance(k, slice) for k in key):
+        return None
+    cut = [(d, k) for d, k in enumerate(key)
+           if k != slice(None)]
+    if len(cut) != 1 or cut[0][1].step not in (None, 1):
+        return None
+    dim, k = cut[0]
+    size = table.shape[dim]
+    lo, hi, _ = k.indices(size)
+    over = [i for i, p in enumerate(table.placements) if p.is_shard(dim)]
+    if not over or hi <= lo or any(
+            not (p.is_shard() or p.is_replicate())
+            or _strided(p, getattr(p, "dim", -1)) for p in table.placements):
+        return None
+    m = math.prod(table.device_mesh.size(i) for i in over)
+    if size % m or lo % m or hi % m:
+        return None
+    local = table._local_tensor.narrow(dim, lo // m, (hi - lo) // m)
+    shape = list(table.shape)
+    shape[dim] = hi - lo
+    return DTensor.from_local(local, table.device_mesh, table.placements,
+                              run_check=False, shape=torch.Size(shape),
+                              stride=make_contiguous_strides_for(shape))
+
+
+def _spec_of(mesh, placements, shape, stride, dtype):
+    """A ``DTensorSpec`` whose strided shards are plain strided shards of
+    their dim, as torch 2.13's view rule makes them. A torch whose spec
+    has ``use_strided_shard_as_shard_order`` reads a strided shard made
+    any other way as an order of mesh dims, and torch 2.11's planner then
+    refuses one whose split factor is no product of mesh sizes; so the
+    field is set where the spec has it (a test of the field, which older
+    torches lack)."""
+    from torch.distributed.tensor._dtensor_spec import DTensorSpec, TensorMeta
+    flag = {"use_strided_shard_as_shard_order": False} \
+        if "use_strided_shard_as_shard_order" in getattr(
+            DTensorSpec, "__dataclass_fields__", {}) else {}
+    return DTensorSpec(mesh, tuple(placements), tensor_meta=TensorMeta(
+        torch.Size(shape), tuple(stride), dtype), **flag)
+
+
+def _plain_strided(t):
+    """``t`` with :func:`_spec_of`'s spec where DTensor gave a strided
+    shard a spec that reads it as an order of mesh dims (torch 2.11 does
+    so for an op's output whatever its inputs' specs said, and its
+    planner then refused the strided shard); ``t`` itself otherwise."""
+    from torch.distributed.tensor import DTensor
+    if not isinstance(t, DTensor) or not getattr(
+            t._spec, "use_strided_shard_as_shard_order", False):
+        return t
+    return _wrap(t._local_tensor, t.device_mesh, t.placements, t.shape,
+                 t.stride())
+
+
+def _wrap(local, mesh, placements, shape, stride=None):
+    """``local`` as rank 0's shard of a DTensor of global ``shape`` (its
+    ``stride``; by default the strides of ``shape`` laid out in the order
+    of ``local``'s, so that a local op that kept an input's layout keeps
+    it globally too), made below autograd (in ``PartitionerPlacements``)
+    with :func:`_spec_of`'s spec."""
+    from torch.distributed.tensor import DTensor
+    shape = tuple(shape)
+    if stride is None:
+        order = sorted(range(len(shape)), key=lambda d: (
+            -local.stride()[d], d) if local.ndim == len(shape) else d)
+        stride, n = [0] * len(shape), 1
+        for d in reversed(order):
+            stride[d] = n
+            n *= max(shape[d], 1)
+    stride = tuple(stride)
+    return DTensor(local, _spec_of(mesh, placements, shape, stride,
+                                   local.dtype), requires_grad=False)
+
+
+def _moved(t, placements):
+    """``t`` redistributed to ``placements`` below autograd (in
+    ``PartitionerPlacements``, whose ops autograd has already recorded):
+    the local redistribution between :func:`_spec_of`'s specs, no autograd
+    function (under ``no_grad`` one ends in autograd's ``detach_`` of its
+    output where ``t`` requires a gradient, an op for which torch 2.11's
+    DTensor has no sharding strategy)."""
+    from torch.distributed.tensor._redistribute import (
+        redistribute_local_tensor)
+    if tuple(placements) == tuple(t.placements):
+        return t
+    src = _spec_of(t.device_mesh, t.placements, t.shape, t.stride(),
+                   t.dtype)
+    dst = _spec_of(t.device_mesh, placements, t.shape, t.stride(), t.dtype)
+    return _wrap(redistribute_local_tensor(t._local_tensor, src, dst),
+                 t.device_mesh, placements, t.shape, t.stride())
 
 
 def _reduced(t, dims):
@@ -583,6 +802,19 @@ def _strided_split(func, x, size, groups):
                 p = x.placements[i]
                 pl[i] = type(p)(dst[0], split_factor=p.split_factor) \
                     if _strided(p, src[0]) else Shard(dst[0])
+        elif len(src) == 1 and len(dst) > 1 and not any(
+                _strided(x.placements[i], src[0]) for i in over):
+            # plain shards of a dim split into factors: the leading one
+            # takes them (torch 2.13 splits so itself, 2.11 gathers)
+            n = math.prod(mesh.size(i) for i in over)
+            if size[dst[0]] % n or any(not x.placements[i].is_shard(src[0])
+                                       for i in over):
+                return None
+            for d in dst:
+                local[d] = size[d]
+            local[dst[0]] //= n
+            for i in over:
+                pl[i] = Shard(dst[0])
         elif len(src) == 1 and len(dst) > 1:
             plain, p = over[:-1], x.placements[over[-1]]
             if not _strided(p, src[0]):
@@ -608,9 +840,7 @@ def _strided_split(func, x, size, groups):
             pl[over[-1]] = Shard(minor[0])
         else:
             return None
-    return DTensor.from_local(
-        func(x._local_tensor, local), mesh, pl, run_check=False,
-        shape=torch.Size(size), stride=make_contiguous_strides_for(size))
+    return _wrap(func(x._local_tensor, local), mesh, pl, size)
 
 
 def _moved_shards(x, over, groups, size):
@@ -640,8 +870,11 @@ def _moved_shards(x, over, groups, size):
 
 
 def _strided(p, dim):
-    from torch.distributed.tensor.placement_types import _StridedShard
-    return isinstance(p, _StridedShard) and p.dim == dim
+    """``p`` is a strided shard of ``dim`` (a torch without the class
+    makes none)."""
+    from torch.distributed.tensor import placement_types
+    cls = getattr(placement_types, "_StridedShard", None)
+    return cls is not None and isinstance(p, cls) and p.dim == dim
 
 
 def _product_operands(func, args):
@@ -677,7 +910,7 @@ def _product_operands(func, args):
         pl = [Replicate() if p.is_partial() or _strided(p, k) else p
               for p in t.placements]
         if pl != list(t.placements):
-            args[j] = t.redistribute(t.device_mesh, pl)
+            args[j] = _moved(t, pl)
     a, b = args[lhs], args[rhs]
     if not (isinstance(a, DTensor) and isinstance(b, DTensor)):
         return tuple(args)
@@ -772,13 +1005,11 @@ def _strided_product(func, a, b):
         b_pl.append(pair[1])
         o_pl.append(pair[2])
     if a_pl != list(a.placements):
-        a = a.redistribute(mesh, a_pl)
+        a = _moved(a, a_pl)
     if b_pl != list(b.placements):
-        b = b.redistribute(mesh, b_pl)
+        b = _moved(b, b_pl)
     shape = tuple(a.shape[:-1]) + (b.shape[-1],)
-    return DTensor.from_local(
-        func(a._local_tensor, b._local_tensor), mesh, o_pl, run_check=False,
-        shape=torch.Size(shape), stride=make_contiguous_strides_for(shape))
+    return _wrap(func(a._local_tensor, b._local_tensor), mesh, o_pl, shape)
 
 
 def _plain_pair(pa, pb, nd):
@@ -827,12 +1058,12 @@ def _gather_small_operand(a, b):
         size = a.device_mesh.size(i)
         if pa.is_shard(m_dim) and (pb.is_shard(k_b) or pb.is_shard(n_dim)) \
                 and b._local_tensor.numel() * size <= by_rows:
-            b = b.redistribute(b.device_mesh, [
+            b = _moved(b, [
                 Replicate() if j == i else p
                 for j, p in enumerate(b.placements)])
         elif pb.is_shard(n_dim) and (pa.is_shard(k_a) or pa.is_shard(m_dim)) \
                 and a._local_tensor.numel() * size <= by_cols:
-            a = a.redistribute(a.device_mesh, [
+            a = _moved(a, [
                 Replicate() if j == i else p
                 for j, p in enumerate(a.placements)])
     return a, b
@@ -844,7 +1075,7 @@ def _shard_on(t, i, dim):
     from torch.distributed.tensor import Shard
     pl = list(t.placements)
     pl[i] = Shard(dim)
-    return t.redistribute(t.device_mesh, pl)
+    return _moved(t, pl)
 
 
 def _softmax_grad_like(grad, out):
@@ -857,7 +1088,7 @@ def _softmax_grad_like(grad, out):
     if any(p.is_partial() for p in out.placements) \
             or list(grad.placements) == list(out.placements):
         return grad
-    return grad.redistribute(grad.device_mesh, out.placements)
+    return _moved(grad, out.placements)
 
 
 def _stats_over(local, x, dim, dims, op):
@@ -868,12 +1099,10 @@ def _stats_over(local, x, dim, dims, op):
     from torch.distributed.tensor import DTensor, Partial, Replicate
     shape = list(x.shape)
     shape[dim] = 1
-    t = DTensor.from_local(
-        local, x.device_mesh, [Partial(op) if i in dims else p
-                               for i, p in enumerate(x.placements)],
-        run_check=False, shape=torch.Size(shape),
-        stride=make_contiguous_strides_for(shape))
-    return t.redistribute(x.device_mesh, [
+    t = _wrap(local, x.device_mesh, [Partial(op) if i in dims else p
+                                     for i, p in enumerate(x.placements)],
+              shape)
+    return _moved(t, [
         Replicate() if i in dims else p
         for i, p in enumerate(x.placements)]).to_local()
 
@@ -904,9 +1133,7 @@ def _sharded_softmax(x, dim, half_to_float):
     m = _stats_over(local.amax(dim, keepdim=True), x, dim, dims, "max")
     e = (local - m).exp_()
     e.div_(_stats_over(e.sum(dim, keepdim=True), x, dim, dims, "sum"))
-    return DTensor.from_local(e, x.device_mesh, x.placements,
-                              run_check=False, shape=x.shape,
-                              stride=x.stride())
+    return _wrap(e, x.device_mesh, x.placements, x.shape, x.stride())
 
 
 def _sharded_logsumexp(x, dim, keepdim=False):
@@ -939,9 +1166,7 @@ def _sharded_logsumexp(x, dim, keepdim=False):
         del shape[d]
         pl = [Shard(p.dim - 1) if p.is_shard() and p.dim > d else p
               for p in pl]
-    return DTensor.from_local(out, x.device_mesh, pl, run_check=False,
-                              shape=torch.Size(shape),
-                              stride=make_contiguous_strides_for(shape))
+    return _wrap(out, x.device_mesh, pl, shape)
 
 
 def _sharded_softmax_backward(grad, out, dim):
@@ -955,13 +1180,12 @@ def _sharded_softmax_backward(grad, out, dim):
     if not dims:
         return None
     if list(grad.placements) != list(out.placements):
-        grad = grad.redistribute(out.device_mesh, out.placements)
+        grad = _moved(grad, out.placements)
     g, o = grad._local_tensor, out._local_tensor
     t = _stats_over((g * o).sum(dim, keepdim=True), out, dim, dims,
                     "sum")
-    return DTensor.from_local((g - t).mul_(o), out.device_mesh,
-                              out.placements, run_check=False,
-                              shape=out.shape, stride=out.stride())
+    return _wrap((g - t).mul_(o), out.device_mesh, out.placements,
+                 out.shape, out.stride())
 
 
 def _local_scatter_add(x, dim, index, src):
@@ -983,8 +1207,8 @@ def _local_scatter_add(x, dim, index, src):
     mesh = x.device_mesh
     pl = [Replicate() if i in over else p
           for i, p in enumerate(x.placements)]
-    index = index.redistribute(mesh, pl).to_local()
-    src = src.redistribute(mesh, pl).to_local()
+    index = _moved(index, pl).to_local()
+    src = _moved(src, pl).to_local()
     local = x._local_tensor
     _, offset = compute_local_shape_and_global_offset(tuple(x.shape), mesh,
                                                       x.placements)
@@ -992,8 +1216,261 @@ def _local_scatter_add(x, dim, index, src):
     inside = (index >= 0) & (index < local.shape[dim])
     out = local.scatter_add(dim, torch.where(inside, index, 0),
                             src * inside)
-    return DTensor.from_local(out, mesh, x.placements, run_check=False,
-                              shape=x.shape, stride=x.stride())
+    return _wrap(out, mesh, x.placements, x.shape, x.stride())
+
+
+def _pointwise_operands(func, a, b):
+    """``a`` and ``b`` of a binary pointwise op (``add``, ``sub``, ``mul``,
+    ``div``) placed as torch 2.13's DTensor places them, mesh dim by mesh
+    dim, where torch 2.11's choice differs:
+
+    * one sharded, the other replicated: the replicated one sliced to the
+      shard (its dim under broadcasting; no collective), where 2.11
+      gathered the shard (an SSM's per-channel factor on ``model`` times
+      its activations);
+    * both sharded on other dims: the smaller moved to the other's shard
+      (or gathered where its dim there is broadcast), on a tie the second
+      (a residual sum whose branch a MoE left on other dims; a
+      norm's scale, sharded by sequence, times its activations sharded by
+      channel);
+    * one partial, the other sharded: the partial one reduce-scattered
+      to the other's shard (where 2.11 would move the shard to a partial
+      sum, which it does not support, or gathered it; torch 2.13 gathers
+      a product's small factor and keeps the product partial, to be
+      reduced whole later, and so in a MoE's combine, partial over
+      ``data``, lost the batch's shard);
+    * one partial, the other replicated (or a scalar): a sum takes the
+      replicated one as the partial sum on rank 0 (a scalar: the partial
+      one reduce-scattered, :func:`_reduce_scattered`), a product (a
+      quotient's numerator) stays partial, where 2.11 reduced the partial
+      one.
+
+    Others unchanged."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    aten = torch.ops.aten
+    sums = func in (aten.add.Tensor, aten.sub.Tensor)
+    if not isinstance(a, DTensor):
+        return a, b
+    if not isinstance(b, DTensor):
+        return (_reduce_scattered(a) if sums else a), b
+    if any(_strided(p, getattr(p, "dim", -1))
+           for p in (*a.placements, *b.placements)):
+        return a, b
+    pl = [list(a.placements), list(b.placements)]
+    ts, relabel = (a, b), [{}, {}]
+    for i in range(a.device_mesh.ndim):
+        for j in (0, 1):
+            me, them = ts[j], ts[1 - j]
+            mp, tp = pl[j][i], pl[1 - j][i]
+            d = tp.dim + me.ndim - them.ndim if tp.is_shard() else -1
+            aligned = 0 <= d and me.shape[d] == them.shape[tp.dim] > 1
+            linear = not sums and (func is aten.mul.Tensor or j == 0)
+            if mp.is_replicate() and tp.is_shard():
+                if aligned:
+                    pl[j][i] = Shard(d)
+            elif mp.is_shard() and tp.is_shard() \
+                    and mp.dim + them.ndim - me.ndim != tp.dim \
+                    and (me.numel(), 1 - j) <= (them.numel(), j):
+                # the smaller moved (on a tie the second: a residual
+                # stream keeps its shards and the branch added moves)
+                pl[j][i] = Shard(d) if aligned else Replicate()
+            elif mp.is_partial() and tp.is_shard():
+                if linear and them.numel() < me.numel():
+                    pl[1 - j][i] = Replicate()
+                else:
+                    pl[j][i] = Shard(d) if aligned else Replicate()
+            elif mp.is_partial() and tp.is_replicate():
+                if sums:
+                    relabel[1 - j][i] = mp
+                elif not linear:
+                    pl[j][i] = Replicate()
+            else:
+                continue
+            break
+    out = []
+    for t, p, lab in zip(ts, pl, relabel):
+        t = _moved(t, p)
+        if lab:
+            # rank 0 holds a replicated value as its part of a partial sum
+            t = _wrap(t._local_tensor, t.device_mesh, [
+                lab.get(i, q) for i, q in enumerate(t.placements)], t.shape,
+                t.stride())
+        out.append(t)
+    return tuple(out)
+
+
+def _local_pointwise(func, a, b, rest, kwargs):
+    """``func(a, b, *rest)`` of a binary pointwise op on each rank's
+    shards where :func:`_pointwise_operands` has left them compatible on
+    every mesh dim (the same shard, a shard against a broadcast replica,
+    partial sums a sum or a product keeps): the local op, the result
+    sharded, partial or replicated as they are. DTensor's own choice
+    there differs between torches (2.11 reduced a partial factor 2.13
+    keeps). None where they are not compatible."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    aten = torch.ops.aten
+    if not (isinstance(a, DTensor) and isinstance(b, DTensor)) or any(
+            _strided(p, getattr(p, "dim", -1))
+            for p in (*a.placements, *b.placements)):
+        return None
+    nd = max(a.ndim, b.ndim)
+    sums = func in (aten.add.Tensor, aten.sub.Tensor)
+    out = []
+    for p, q in zip(a.placements, b.placements):
+        pd = p.dim + nd - a.ndim if p.is_shard() else None
+        qd = q.dim + nd - b.ndim if q.is_shard() else None
+        if p.is_shard() or q.is_shard():
+            d = pd if pd is not None else qd
+            for t, r, rd in ((a, q, qd), (b, p, pd)):
+                e = d - (nd - t.ndim)
+                if rd is None and not (r.is_replicate() and (
+                        e < 0 or t.shape[e] == 1)):
+                    return None
+            if pd is not None and qd is not None and pd != qd:
+                return None
+            out.append(Shard(d))
+        elif p.is_partial() and q.is_partial():
+            if not sums or p != q:
+                return None
+            out.append(p)
+        elif p.is_partial() or q.is_partial():
+            if sums or func is aten.div.Tensor and q.is_partial():
+                return None
+            out.append(p if p.is_partial() else q)
+        else:
+            out.append(Replicate())
+    return _wrap(func(a._local_tensor, b._local_tensor, *rest, **kwargs),
+                 a.device_mesh, out, torch.broadcast_shapes(a.shape,
+                                                            b.shape))
+
+
+def _local_permute(func, x, args):
+    """``t``, ``transpose`` or ``permute`` of ``x`` with a strided shard:
+    the local op, each shard (strided too) following its dim. Torch 2.11
+    moved a plain shard's dim and left the strided shard's where it was
+    (``t`` of (S(0), _S(0, 16)) gave (S(1), _S(0, 16)))."""
+    aten = torch.ops.aten
+    n = x.ndim
+    if func is aten.t.default:
+        perm = list(range(n))[::-1]
+    elif func is aten.transpose.int:
+        perm = list(range(n))
+        d0, d1 = args[0] % n, args[1] % n
+        perm[d0], perm[d1] = perm[d1], perm[d0]
+    else:
+        perm = [d % n for d in args[0]]
+    pl = []
+    for p in x.placements:
+        if _strided(p, getattr(p, "dim", -1)):
+            pl.append(type(p)(perm.index(p.dim), split_factor=p.split_factor))
+        elif p.is_shard():
+            pl.append(type(p)(perm.index(p.dim)))
+        else:
+            pl.append(p)
+    return _wrap(func(x._local_tensor, *args), x.device_mesh, pl,
+                 [x.shape[d] for d in perm], [x.stride()[d] for d in perm])
+
+
+def _reduce_scattered(x):
+    """``x`` with its partial sums reduce-scattered, each to the first dim
+    whose local size the mesh dim divides (no later mesh dim sharding it),
+    else all-reduced: where torch 2.13's DTensor reduces a partial input
+    of ``clone``, a non-linear pointwise op (``pow``, ``silu``, ``exp``,
+    ``where``, ``silu_backward``) or a sum with a scalar, which torch 2.11
+    reduced whole or
+    kept partial (attention's queries, partial over ``model``,
+    were then all-reduced whole before the scores: one full-width qwen3
+    layer's ``prefill_32k`` held 1.03e12 B a rank against 5.58e10)."""
+    from torch.distributed.tensor import Replicate, Shard
+    if not any(p.is_partial() for p in x.placements):
+        return x
+    mesh, pl = x.device_mesh, list(x.placements)
+    have = list(x._local_tensor.shape)
+    for i, p in enumerate(pl):
+        if not p.is_partial():
+            continue
+        m = mesh.size(i)
+        ok = [d for d in range(x.ndim) if have[d] % m == 0 and have[d] >= m
+              and not any(q.is_shard(d) or _strided(q, d)
+                          for q in pl[i + 1:])]
+        pl[i] = Shard(ok[0]) if ok else Replicate()
+        if ok:
+            have[ok[0]] //= m
+    return _moved(x, pl)
+
+
+def _k5_head_shards(func, q, k, v, window, causal):
+    """K5 (``repro_torch::swa_attention``) where ``model`` divides the
+    query heads and not the kv heads (48 heads of 8 on 16 ranks): each
+    rank repeats the kv groups of its own heads out to them and runs K5 on
+    its heads with a group of one, q, k and v then sharing the heads'
+    shard, as ``HeadRepeat`` does for the plain route. K5's DTensor rule
+    (``kernels/swa_attention.py::_sharding``) splits heads only where the
+    mesh dim divides the kv heads; DTensor gathered the heads instead, and
+    each ``model`` rank ran K5 on all of them. None for any other case."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    if not all(isinstance(t, DTensor) for t in (q, k, v)):
+        return None
+    mesh = q.device_mesh
+    names = tuple(mesh.mesh_dim_names or ())
+    if "model" not in names:
+        return None
+    i = names.index("model")
+    m, h, kh = mesh.size(i), q.shape[2], k.shape[2]
+    if m == 1 or h % m or kh % m == 0 or any(
+            _strided(p, getattr(p, "dim", -1))
+            for t in (q, k, v) for p in t.placements):
+        return None
+    # partial sums are reduced to the heads' placements
+    q_pl = [Shard(2) if j == i else Replicate() if p.is_partial() else p
+            for j, p in enumerate(q.placements)]
+    if any(p.is_shard(2) for j, p in enumerate(q_pl) if j != i):
+        return None
+    kv_pl = [Replicate() if j == i else p for j, p in enumerate(q_pl)]
+    q, k, v = _moved(q, q_pl), _moved(k, kv_pl), _moved(v, kv_pl)
+    group, mine = h // kh, h // m
+
+    def repeated(t):
+        return t._local_tensor.narrow(2, 0, -(-mine // group)) \
+            .repeat_interleave(group, 2).narrow(2, 0, mine)
+    return _wrap(func(q._local_tensor, repeated(k), repeated(v), window,
+                      causal), mesh, q_pl, q.shape)
+
+
+def _local_gather(x, dim, index, sparse_grad=False):
+    """``gather(x, dim, index)`` along a ``dim`` that plain shards split
+    (a train step's gold logits, the vocab on ``model``): each rank
+    gathers the indices that fall in its columns (the others masked to
+    0), so the result is partial over those mesh dims, as XLA's
+    partitioner gathers from a sharded operand; a partial sum of ``x``
+    stays partial (also along a dim no mesh dim splits). DTensor's own
+    rule makes a ``_MaskPartial``, which torch 2.11's cannot reduce over
+    meta shards (``aten::equal``), and which torch 2.13's could not reduce
+    without its mask over a partial ``x``. None where ``x`` is neither
+    sharded along ``dim`` nor partial, the indices are partial or a
+    placement is strided."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate
+    from torch.distributed.tensor._utils import (
+        compute_local_shape_and_global_offset)
+    dim %= x.ndim
+    over = [i for i, p in enumerate(x.placements) if p.is_shard(dim)]
+    if not (over or any(p.is_partial() for p in x.placements)) \
+            or not isinstance(index, DTensor) or any(
+            p.is_partial() for p in index.placements) or any(
+            _strided(p, getattr(p, "dim", -1))
+            for p in (*x.placements, *index.placements)):
+        return None
+    mesh, shape = x.device_mesh, tuple(index.shape)
+    idx = _moved(index, [Replicate() if i in over or p.is_partial() else p
+                         for i, p in enumerate(x.placements)])._local_tensor
+    local = x._local_tensor
+    _, offset = compute_local_shape_and_global_offset(tuple(x.shape), mesh,
+                                                      x.placements)
+    idx = idx - offset[dim]
+    inside = (idx >= 0) & (idx < local.shape[dim])
+    out = local.gather(dim, torch.where(inside, idx, 0)) * inside
+    return _wrap(out, mesh, [Partial() if i in over else p
+                             for i, p in enumerate(x.placements)], shape)
 
 
 def _local_row_write(func, x, indices, values, accumulate=False):
@@ -1029,15 +1506,258 @@ def _local_row_write(func, x, indices, values, accumulate=False):
         else:
             return None
     mesh = x.device_mesh
-    slot = slot.redistribute(mesh, slot_pl).to_local()
-    values = values.redistribute(mesh, val_pl).to_local()
+    slot = _moved(slot, slot_pl).to_local()
+    values = _moved(values, val_pl).to_local()
     local = x._local_tensor
     rows = torch.arange(local.shape[0], device=local.device)
     out = func(local, [rows, slot], values, accumulate)
     if func._schema.is_mutable:
         return x
-    return DTensor.from_local(out, mesh, x.placements, run_check=False,
-                              shape=x.shape, stride=x.stride())
+    return _wrap(out, mesh, x.placements, x.shape, x.stride())
+
+
+def _merged_view(func, x, size, groups):
+    """A view of ``x`` to ``size`` that merges dims of which a non-leading
+    one is sharded (a (batch, heads) pair merged to (batch·heads), the
+    heads on ``model``): the local view, the merged dim keeping the
+    leading dim's shards and taking a strided shard for the other one
+    (split factor: the local sizes of the merged dims before it), as torch
+    2.13's DTensor places it; torch 2.11's has no rule for it ("Attempted
+    to flatten multiple dimensions"). None where no merge has such a
+    shard, where a merge has two, where a mesh dim of the leading dim
+    follows the strided one, or where the view splits a sharded dim."""
+    from torch.distributed.tensor import Shard, placement_types
+    cls = getattr(placement_types, "_StridedShard", None)
+    pl = list(x.placements)
+    if cls is None or any(_strided(p, getattr(p, "dim", -1)) for p in pl):
+        return None
+    have = x._local_tensor.shape
+    local, out, found = list(size), list(pl), False
+    for src, dst in groups:
+        src_n = [d for d in src if x.shape[d] > 1]
+        dst_n = [d for d in dst if size[d] > 1]
+        over = {i: p.dim for i, p in enumerate(pl)
+                if p.is_shard() and p.dim in src}
+        if not over:
+            continue
+        if len(dst_n) != 1:
+            return None
+        to = dst_n[0]
+        for d in dst:
+            local[d] = 1 if d != to else math.prod(have[d] for d in src_n)
+        late = [i for i, d in over.items() if d != src_n[0]]
+        if len(late) > 1 or late and any(
+                i > late[0] for i, d in over.items() if d == src_n[0]):
+            return None
+        for i, d in over.items():
+            if d == src_n[0]:
+                out[i] = Shard(to)
+            else:
+                out[i] = cls(to, split_factor=math.prod(
+                    have[e] for e in src_n if e < d))
+                found = True
+    if not found:
+        return None
+    return _wrap(func(x._local_tensor, local), x.device_mesh,
+                               out, size)
+
+
+def _gathered_dims(x, dims):
+    """``x`` with the dims ``dims`` gathered (plain or strided shards)."""
+    from torch.distributed.tensor import Replicate
+    pl = [Replicate() if p.is_shard() and p.dim in dims
+          or _strided(p, getattr(p, "dim", -1)) and p.dim in dims else p
+          for p in x.placements]
+    return x if pl == list(x.placements) else _moved(x, pl)
+
+
+def _local_flip(x, dims):
+    """``flip(x, dims)`` on each rank's shard, the flipped dims gathered
+    first where they are sharded (SSD's reversed cumulative sums). Torch
+    2.11's DTensor has no rule for ``flip``."""
+    dims = [d % x.ndim for d in dims]
+    x = _gathered_dims(x, dims)
+    return _wrap(x._local_tensor.flip(dims), x.device_mesh,
+                               x.placements, x.shape)
+
+
+def _local_pad(x, pad, value=0.0):
+    """``constant_pad_nd(x, pad, value)`` on each rank's shard, the padded
+    dims gathered first where they are sharded (the SSM conv's causal
+    pad of the sequence). Torch 2.11's rule returns a placement for a
+    one-dim mesh on a larger one."""
+    from torch.distributed.tensor import Replicate
+    padded = [x.ndim - 1 - k // 2 for k in range(len(pad)) if pad[k]]
+    x = _gathered_dims(x, padded)
+    if value and any(p.is_partial() for p in x.placements):
+        x = _moved(x, [Replicate() if p.is_partial() else p
+                       for p in x.placements])
+    shape = list(x.shape)
+    for k in range(0, len(pad), 2):
+        shape[x.ndim - 1 - k // 2] += pad[k] + pad[k + 1]
+    return _wrap(
+        torch.constant_pad_nd(x._local_tensor, pad, value), x.device_mesh,
+        x.placements, shape)
+
+
+def _local_part(x, mesh, placements):
+    """Rank 0's part of a plain or replicated ``x`` under ``placements``
+    (its shards sliced; a partial dim keeps all of ``x``)."""
+    from torch.distributed.tensor import DTensor
+    from torch.distributed.tensor._utils import (
+        compute_local_shape_and_global_offset)
+    full = x._local_tensor if isinstance(x, DTensor) else x
+    shape, offset = compute_local_shape_and_global_offset(
+        tuple(full.shape), mesh, placements)
+    return full[tuple(slice(o, o + n) for o, n in zip(offset, shape))]
+
+
+def _local_index_add(x, dim, index, src, alpha=1, zeros=False):
+    """``index_add(x, dim, index, src)`` into a replicated ``x`` (MoE's
+    counts, dispatch buffer and combine), each rank adding into its part of
+    ``x``, ``src``'s shards of its other dims kept. Where ``src`` is
+    sharded along ``dim``, ``x`` is zeros and ``src`` floating point, and
+    the later reduction of a partial result (twice a rank's part of ``x``
+    over the mesh dim's size) moves fewer bytes than gathering ``src``'s
+    rows (the rank's rows times the mesh dim's size), each rank adds its
+    own rows (its shard of the indices) and the result is partial there,
+    as XLA scatters (gathering every token's rows onto each rank held
+    mixtral-8x22b's multi-pod ``train_4k`` at 1.72x the reference's
+    peak); otherwise (MoE's integer counts, a smoke mixtral's dispatch
+    buffer over ``model``) the rows and indices are gathered there, as
+    torch 2.13 places them. Torch 2.11's
+    DTensor has no rule, and its decomposition checks a shard's indices
+    against a whole dim. None where ``x`` is sharded or partial."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    mesh = next(t.device_mesh for t in (src, index, x)
+                if isinstance(t, DTensor))
+    if isinstance(x, DTensor) and any(not p.is_replicate()
+                                      for p in x.placements):
+        return None
+    dim %= src.ndim
+    split = zeros and src.dtype.is_floating_point
+    s_pl, i_pl, out_pl = [], [], []
+    if isinstance(src, DTensor):
+        # the bytes a rank would receive to gather src's rows there,
+        # against twice its part of x that a partial sum reduces later
+        keep = math.prod(mesh.size(i) for i, p in enumerate(src.placements)
+                         if p.is_shard() and p.dim != dim)
+        gather_cost = src._local_tensor.numel()
+        partial_cost = 2 * x.numel() / keep
+    for i, p in enumerate(src.placements if isinstance(src, DTensor)
+                          else [Replicate()] * mesh.ndim):
+        if p.is_shard(dim) and split and partial_cost / mesh.size(i) \
+                < gather_cost:
+            s_pl.append(p)
+            i_pl.append(Shard(0))
+            out_pl.append(Partial())
+            continue
+        if p.is_shard(dim) or _strided(p, getattr(p, "dim", -1)) \
+                or p.is_partial() and not zeros:
+            p = Replicate()
+        s_pl.append(p)
+        i_pl.append(Replicate())
+        out_pl.append(p)
+    idx = _moved(index, i_pl)._local_tensor if isinstance(index, DTensor) \
+        else _local_part(index, mesh, i_pl)
+    val = _moved(src, s_pl)._local_tensor if isinstance(src, DTensor) \
+        else src
+    local = _local_part(x, mesh, [Replicate() if p.is_partial() else p
+                                  for p in out_pl])
+    return _wrap(local.index_add(dim, idx, val, alpha=alpha), mesh, out_pl,
+                 x.shape)
+
+
+def _partial_index_put(x, idx, values):
+    """``index_put(x, [idx], values, accumulate=True)`` into zeros ``x``
+    of a table's shape (the gradient of a lookup), as XLA's partitioner
+    scatters: each rank adds its own rows into a table-sized partial sum
+    (over the mesh dims that split the rows), a table's column shard where
+    ``values`` is sharded on its last dims. Torch 2.11's rule makes an
+    unnormalized ``Shard(-1)``. None where a placement is strided."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    mesh = values.device_mesh
+    n = idx.ndim
+    ipl = list(idx.placements) if isinstance(idx, DTensor) \
+        else [Replicate()] * mesh.ndim
+    if any(_strided(p, getattr(p, "dim", -1)) for p in
+           (*ipl, *values.placements)) or any(p.is_partial() for p in ipl):
+        return None
+    i_to, v_to, out = [], [], []
+    for pi, pv in zip(ipl, values.placements):
+        if pv.is_partial():
+            i_to.append(Replicate())
+            v_to.append(pv)
+            out.append(Partial())
+        elif pv.is_shard() and pv.dim >= n:
+            i_to.append(Replicate())
+            v_to.append(pv)
+            out.append(Shard(pv.dim - n + 1))
+        elif pv.is_shard():
+            i_to.append(Shard(pv.dim))
+            v_to.append(pv)
+            out.append(Partial())
+        elif pi.is_shard():
+            i_to.append(pi)
+            v_to.append(Shard(pi.dim))
+            out.append(Partial())
+        else:
+            i_to.append(Replicate())
+            v_to.append(Replicate())
+            out.append(Replicate())
+    if isinstance(idx, DTensor):
+        idx = _moved(idx, i_to)._local_tensor
+    values = _moved(values, v_to)._local_tensor
+    from torch.distributed.tensor._utils import (
+        compute_local_shape_and_global_offset)
+    shape, _ = compute_local_shape_and_global_offset(tuple(x.shape), mesh,
+                                                      out)
+    local = torch.zeros(shape, dtype=x.dtype, device=values.device)
+    return _wrap(
+        local.index_put([idx], values, accumulate=True), mesh, out, x.shape)
+
+
+def _column_lookup(table, idx):
+    """``table[idx]`` (or ``index_select(table, 0, idx)``) of a 1-D or 2-D
+    ``table`` (an embedding lookup, MoE's expert ids and dispatch buffer,
+    an ``index_add``'s backward): on a mesh dim that shards the table's
+    rows and not the
+    indices, a 2-D table's row shard moved to its columns (an all-to-all)
+    if no other mesh dim shards them, else gathered; then each rank looks
+    up its indices in its part, the rows keeping the indices' shards, as
+    torch 2.13's DTensor places it. Torch 2.11's has no rule for a row
+    shard of the table under some index placements, nor for indices
+    sharded over two mesh dims (the batch over ``pod`` and ``data``), and
+    gives a ``_MaskPartial`` for others that its arithmetic cannot reduce
+    over meta shards (``aten::equal``). A strided shard of the table is
+    gathered. None where the indices are strided or partial."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    mesh, n = table.device_mesh, idx.ndim
+    if any(_strided(p, getattr(p, "dim", -1)) for p in idx.placements) \
+            or any(p.is_partial() for p in idx.placements):
+        return None
+    cols = any(p.is_shard(1) for p in table.placements)
+    t_to, out = [None] * mesh.ndim, [None] * mesh.ndim
+    # minor mesh dims first: the first row shard met moves to the columns
+    for i in reversed(range(mesh.ndim)):
+        pt, pi = table.placements[i], idx.placements[i]
+        if _strided(pt, getattr(pt, "dim", -1)):
+            # a strided shard of the table is gathered (MoE's dispatch
+            # buffer, its rows merged from heads' shards)
+            t_to[i], out[i] = Replicate(), pi
+        elif pt.is_shard() and pi.is_replicate() and (
+                pt.is_shard(1) or not cols and table.ndim == 2):
+            t_to[i], out[i] = Shard(1), Shard(n)
+            cols = True
+        elif pt.is_partial() and pi.is_replicate():
+            t_to[i], out[i] = pt, pt
+        else:
+            t_to[i], out[i] = Replicate(), pi
+    i_to = list(idx.placements)
+    t = _moved(table, t_to)._local_tensor
+    i = _moved(idx, i_to)._local_tensor
+    return _wrap(t[i], mesh, out,
+                               tuple(idx.shape) + tuple(table.shape[1:]))
 
 
 class PartitionerPlacements(TorchDispatchMode):
@@ -1109,6 +1829,20 @@ class PartitionerPlacements(TorchDispatchMode):
     _LOGSUMEXP = torch.ops.aten.logsumexp.default
     _SLICES = (torch.ops.aten.slice.Tensor, torch.ops.aten.select.int)
     _SOFTMAX_BACKWARD = torch.ops.aten._softmax_backward_data.default
+    _PERMUTES = (torch.ops.aten.t.default, torch.ops.aten.transpose.int,
+                 torch.ops.aten.permute.default)
+    _POINTWISE = (torch.ops.aten.add.Tensor, torch.ops.aten.sub.Tensor,
+                  torch.ops.aten.mul.Tensor, torch.ops.aten.div.Tensor)
+    # a partial input of any pointwise op (``clone`` among them) but these
+    # linear ones is reduce-scattered first, as torch 2.13 reduces it
+    # (2.11 all-reduced it)
+    _LINEAR = (torch.ops.aten.neg.default, torch.ops.aten.mul.Scalar,
+               torch.ops.aten.div.Scalar, torch.ops.aten.mul.Tensor,
+               torch.ops.aten.div.Tensor)
+    _ZEROS = (torch.ops.aten.zeros.default, torch.ops.aten.zeros_like.default)
+    _OWN = (torch.ops.aten.flip.default, torch.ops.aten.constant_pad_nd.default,
+            torch.ops.aten.index_add.default, torch.ops.aten.index_put.default,
+            torch.ops.aten.index.Tensor, torch.ops.aten.index_select.default)
 
     def __init__(self):
         super().__init__()
@@ -1121,6 +1855,8 @@ class PartitionerPlacements(TorchDispatchMode):
         # (global shape, dtype) of a tensor ``gather`` read -> its
         # placements, for the zeros of its gradient
         self._gathered_from = {}
+        # id of a tensor made by a zeros factory -> weakref
+        self._zeros = {}
 
     def _gathered_for_slice(self, x, dim):
         """``x`` gathered over the mesh dims that shard ``dim`` (plain or
@@ -1141,7 +1877,7 @@ class PartitionerPlacements(TorchDispatchMode):
         if ref() is x and version == x._version:
             return whole
         with torch.no_grad():
-            whole = x.redistribute(x.device_mesh, [
+            whole = _moved(x, [
                 Replicate() if i in over else p
                 for i, p in enumerate(x.placements)])
         self._whole[key] = (
@@ -1149,14 +1885,62 @@ class PartitionerPlacements(TorchDispatchMode):
             x._version, whole)
         return whole
 
+    def _zeroed(self, out):
+        key = id(out)
+        self._zeros[key] = weakref.ref(out,
+                                       lambda _: self._zeros.pop(key, None))
+        return out
+
+    def _is_zeros(self, t):
+        ref = self._zeros.get(id(t))
+        return ref is not None and ref() is t
+
+    def _own_placement(self, func, args, kwargs):
+        """The ops this mode places itself on every torch, whatever
+        DTensor offers for them (the helpers say why): ``flip``,
+        ``constant_pad_nd``, ``index_add`` into a replicated tensor, an
+        accumulating ``index_put`` into zeros, and a lookup (``index``,
+        ``index_select``) in a tensor
+        sharded by rows. None for any other op or pattern."""
+        from torch.distributed.tensor import DTensor
+        aten = torch.ops.aten
+        x = args[0]
+        if func is aten.index_add.default:
+            return _local_index_add(*args, **kwargs,
+                                    zeros=self._is_zeros(x))
+        if not isinstance(x, DTensor):
+            return None
+        if func is aten.flip.default:
+            return _local_flip(x, args[1])
+        if func is aten.constant_pad_nd.default:
+            return _local_pad(*args, **kwargs)
+        if func is aten.index_put.default and len(args) > 3 and args[3] \
+                and len(args[1]) == 1 and self._is_zeros(x) \
+                and isinstance(args[2], DTensor) \
+                and all(p.is_replicate() for p in x.placements):
+            return _partial_index_put(x, args[1][0], args[2])
+        if func is aten.index.Tensor and len(args[1]) == 1 \
+                and isinstance(args[1][0], DTensor) and x.ndim <= 2:
+            return _column_lookup(x, args[1][0])
+        if func is aten.index_select.default and args[1] % x.ndim == 0 \
+                and isinstance(args[2], DTensor) and x.ndim <= 2:
+            return _column_lookup(x, args[2])
+        return None
+
     def _is_arange(self, t, n):
         """``t`` is a meta tensor that ``arange(n)`` made."""
         ref, ends = self._aranges.get(id(t), (lambda: None, None))
         return ref() is t and ends == (0, n, 1)
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = self._placed(func, args, kwargs or {})
+        ins = {id(a) for a in pytree.tree_leaves((args, kwargs))}
+        return pytree.tree_map_only(
+            torch.Tensor, lambda t: t if id(t) in ins else _plain_strided(t),
+            out)
+
+    def _placed(self, func, args, kwargs):
         from torch.distributed.tensor import DTensor, Replicate
-        kwargs = kwargs or {}
         x = args[0] if args else None
         if func in self._ARANGE:
             out = func(*args, **kwargs)
@@ -1166,6 +1950,14 @@ class PartitionerPlacements(TorchDispatchMode):
                     weakref.ref(out, lambda _: self._aranges.pop(key, None)),
                     {1: (0, *a, 1), 2: (*a, 1)}.get(len(a), a[:3]))
             return out
+        if func in self._ZEROS:
+            return self._zeroed(func(*args, **kwargs))
+        if func in self._OWN and any(isinstance(a, DTensor) for a in
+                                     pytree.tree_leaves((args, kwargs))):
+            with torch.no_grad():
+                out = self._own_placement(func, args, kwargs)
+            if out is not None:
+                return out
         if not isinstance(x, DTensor):
             return func(*args, **kwargs)
         if func in self._PRODUCTS:
@@ -1204,9 +1996,33 @@ class PartitionerPlacements(TorchDispatchMode):
                     return out
                 args = (_softmax_grad_like(*args[:2]),) + tuple(args[1:])
             return func(*args, **kwargs)
+        if func is torch.ops.repro_torch.swa_attention.default:
+            with torch.no_grad():
+                out = _k5_head_shards(func, *args, **kwargs)
+            if out is not None:
+                return out
+        if func in self._POINTWISE and len(args) > 1:
+            with torch.no_grad():
+                args = _pointwise_operands(func, *args[:2]) + tuple(args[2:])
+                out = _local_pointwise(func, args[0], args[1], args[2:],
+                                       kwargs)
+            return out if out is not None else func(*args, **kwargs)
+        if func in self._PERMUTES and any(
+                _strided(p, getattr(p, "dim", -1)) for p in x.placements):
+            return _local_permute(func, x, args[1:])
+        if torch.Tag.pointwise in func.tags and func not in self._LINEAR:
+            with torch.no_grad():
+                args, kwargs = pytree.tree_map_only(
+                    DTensor, _reduce_scattered, (args, kwargs))
+            return func(*args, **kwargs)
+
         if func is self._GATHER:
             self._gathered_from[(tuple(x.shape), x.dtype)] = [
                 p if p.is_shard() else Replicate() for p in x.placements]
+            with torch.no_grad():
+                out = _local_gather(*args, **kwargs)
+            if out is not None:
+                return out
         if func is self._SCATTER_ADD:
             with torch.no_grad():
                 out = _local_scatter_add(*args)
@@ -1222,8 +2038,11 @@ class PartitionerPlacements(TorchDispatchMode):
                   else q if p.is_replicate() and q.is_shard()
                   and size[q.dim] != x.shape[q.dim] else Replicate()
                   for p, q in zip(x.placements, like)]
-            return _dtensor_of(torch.zeros, size, dtype, x.device_mesh, pl,
-                               x._local_tensor.device)
+            return self._zeroed(_dtensor_of(
+                torch.zeros, size, dtype, x.device_mesh, pl,
+                x._local_tensor.device))
+        if func is torch.ops.aten.new_zeros.default:
+            return self._zeroed(func(*args, **kwargs))
         if func in (torch.ops.aten.view.default,
                     torch.ops.aten._unsafe_view.default):
             size = list(args[1])
@@ -1246,7 +2065,10 @@ class PartitionerPlacements(TorchDispatchMode):
                 if gather:
                     pl = _moved_shards(x, gather, groups, size)
                     with torch.no_grad():
-                        y = x.redistribute(x.device_mesh, pl)
+                        y = _moved(x, pl)
+                out = _merged_view(func, y, size, groups)
+                if out is not None:
+                    return out
                 try:
                     return func(y, *args[1:], **kwargs)
                 except RuntimeError:

@@ -344,16 +344,39 @@ def embed_inputs(params, cfg, batch, positions):
     return h
 
 
+# vocab columns of one lm-head product where the logits are smaller than
+# the table: a multiple of 16, so that a vocab split over 16 model ranks
+# splits each chunk evenly
+LOGITS_CHUNK = 8192
+
+
 def logits_from_h(params, cfg, h):
     """Float32 logits: compute-dtype operands, float32 products and sums
-    (the reference's ``preferred_element_type=float32``)."""
-    h = apply_norm(params["final_norm"], h, cfg)
-    if cfg.tie_embeddings:
-        w = cx(params["tok_embed"], cfg).T
-    else:
-        w = cx(params["unembed"], cfg)
-    return torch.einsum("bsd,dv->bsv", h.to(torch.float32),
-                        w.to(torch.float32))
+    (the reference's ``preferred_element_type=float32``). Where no
+    gradient is taken and fewer rows than ``d_model`` meet the table (a
+    decode step, a prefill's last position), the product runs over
+    ``LOGITS_CHUNK`` columns of the vocab at a time: one chunk's
+    compute-dtype and float32 copies of the table are live at once,
+    where the whole table's two copies were (41.7% of mamba2-1.3b's
+    ``long_500k`` peak a rank; XLA fuses both casts into the dot). Each
+    output column is the same dot over the same operands. Under autograd
+    each product's float32 operand is saved for the backward, so the
+    product stays whole."""
+    h = apply_norm(params["final_norm"], h, cfg).to(torch.float32)
+    tied = cfg.tie_embeddings
+    table = params["tok_embed"] if tied else params["unembed"]
+
+    def head(w):
+        w = cx(w, cfg).T if tied else cx(w, cfg)
+        return torch.einsum("bsd,dv->bsv", h, w.to(torch.float32))
+    vocab = table.shape[0 if tied else 1]
+    if torch.is_grad_enabled() or vocab <= LOGITS_CHUNK \
+            or h.shape[0] * h.shape[1] >= h.shape[2]:
+        return head(table)
+    return torch.cat([
+        head(table[lo:lo + LOGITS_CHUNK] if tied
+             else table[:, lo:lo + LOGITS_CHUNK])
+        for lo in range(0, vocab, LOGITS_CHUNK)], dim=-1)
 
 
 # ---------------------------------------------------------------------------

@@ -40,6 +40,12 @@ from repro_torch.sharding.partition import map_with_path
 from repro_torch.train import steps as ST
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, os.path.join(REPO, "tools"))
+
+import dryrun_small as DS  # noqa: E402
+
+with open(os.path.join(REPO, "tests", "dryrun_reference.json")) as f:
+    YARDSTICK = json.load(f)
 
 # ---------------------------------------------------------------------------
 # analyzer units
@@ -328,20 +334,6 @@ def test_kernel_routes_trace_in_the_dry_run(arch, impl):
 # dry runs
 # ---------------------------------------------------------------------------
 
-SCRIPT = r"""
-import dataclasses, json, sys
-from repro_torch.configs import get_smoke_config, InputShape
-from repro_torch.launch import dryrun as D
-cfg = dataclasses.replace(get_smoke_config("%(arch)s"), **%(over)r)
-out = {}
-for name, mesh in (("mesh", %(mesh)r), ("one", (1,) * len(%(mesh)r))):
-    rec = D.run_one("%(arch)s", InputShape("t", %(seq)d, %(batch)d,
-                                           "%(kind)s"), "local",
-                    cfg=cfg, mesh_shape=mesh, device="cpu")
-    out[name] = {k: v for k, v in rec.items() if k != "traceback"}
-print(json.dumps(out))
-"""
-
 # the reference's own small-mesh case (tests/test_dryrun_small.py), with
 # its HLO's dot FLOPs apart (the analysis again with dots billed 0), its
 # ring-model link bytes and the compiled program's peak (arguments +
@@ -380,47 +372,8 @@ def _last_json(script, env):
     return json.loads(out.stdout.strip().splitlines()[-1])
 
 
-def _case(arch, kind, mesh=(4, 2), seq=128, batch=8, over=None, id=None):
-    return pytest.param(
-        {"arch": arch, "kind": kind, "mesh": mesh, "seq": seq,
-         "batch": batch, "over": over or {}}, id=id or f"{arch}-{kind}")
-
-
-@pytest.mark.parametrize("case", [
-    _case("qwen3-14b", "train"),
-    _case("mixtral-8x22b", "decode"),
-    _case("mamba2-1.3b", "decode"),
-    # a cache long enough to dominate the step: its write moved the whole
-    # cache (1.296x the share, 13.3x the reference's link bytes)
-    _case("phi-3-vision-4.2b", "decode", seq=2048,
-          id="phi-3-vision-4.2b-decode-long-cache"),
-    # a vocab that model does not divide: the lm head ran whole on each
-    # model rank (1.565x the share, peak 1.757x, link bytes 1.760x)
-    _case("mamba2-1.3b", "decode", over={"vocab": 4097},
-          id="mamba2-1.3b-decode-vocab-4097"),
-    # the port's own buffers, which the reference donates or never holds:
-    # each SSM layer's conv tail a view of its whole xbc, kept in the
-    # prefill cache (peak 1.795x the reference's)
-    _case("mamba2-1.3b", "prefill", seq=512, over={"n_layers": 24},
-          id="mamba2-1.3b-prefill-24-layers"),
-    # the decode cache restacked beside the one given (1.356x)
-    _case("mamba2-1.3b", "decode", batch=64, over={"n_layers": 32},
-          id="mamba2-1.3b-decode-64-rows-32-layers"),
-    # AdamW's new params and moments as whole trees beside the state
-    # (1.561x)
-    _case("mixtral-8x22b", "train", seq=16, id="mixtral-8x22b-train-seq-16"),
-    # a train step on the (pod, data, model) mesh: DTensor's planner took
-    # over 15 minutes here while the strided query shard of the scores'
-    # gradient was gathered
-    _case("qwen2-72b", "train", mesh=(2, 2, 2), seq=64,
-          id="qwen2-72b-train-multi-pod"),
-    # one sequence and a 2048-slot cache, as at long_500k: the cache's
-    # sequence on data, which cannot split the batch
-    *[_case(arch, "decode", seq=2048, batch=1,
-            id=f"{arch}-decode-one-sequence")
-      for arch in ("qwen3-14b", "mamba2-1.3b", "jamba-v0.1-52b",
-                   "mixtral-8x22b")],
-])
+@pytest.mark.parametrize("case", [pytest.param(c, id=c["id"])
+                                  for c in DS.CASES])
 def test_small_mesh_dry_run(case):
     """Small-mesh cases on 8 fake ranks, each in a process of its own,
     held against the same step traced on one rank and against the
@@ -431,6 +384,10 @@ def test_small_mesh_dry_run(case):
     torch built without CUDA, DTensor's shape inference for some ops
     (``_softmax_backward_data``) cannot make its fake tensors of a
     ``cuda`` mesh; ``chip_smoke.py`` traces ``cuda`` on the card.
+
+    The cases and the port's side of them are ``tools/dryrun_small.py``'s;
+    the reference's figures computed here must equal those committed in
+    ``tests/dryrun_reference.json``, which phase 12 reads on the card.
 
     The bars, and the readings they were set from (this CPU, torch 2.13,
     per rank, port over the share or the reference):
@@ -467,8 +424,13 @@ def test_small_mesh_dry_run(case):
         products were placed on their shards it did not trace within this
         test's 300 s limit (over 15 minutes, DTensor's planner)."""
     env = dict(os.environ, PYTHONPATH=f"{REPO}/src")
-    port = _last_json(SCRIPT % case, env)
+    proc = DS.spawn(case["id"], "cpu", env)
+    out, err = proc.communicate(timeout=300)
+    assert proc.returncode == 0, err[-2000:]
+    port = json.loads(out.strip().splitlines()[-1])
     ref = _last_json(REF_SCRIPT % case, dict(env, JAX_PLATFORMS="cpu"))
+    # the figures chip_smoke.py's phase 12 holds the card to
+    assert ref == YARDSTICK["small"][case["id"]], (case["id"], ref)
     r, one = port["mesh"], port["one"]
     assert r["status"] == "ok", r.get("error")
     assert one["status"] == "ok", one.get("error")

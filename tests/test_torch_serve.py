@@ -221,3 +221,31 @@ def test_serve_batched_example_runs_on_cpu(capsys):
     out = capsys.readouterr().out.splitlines()
     assert [ln.split()[0] for ln in out] == ["mixtral-8x22b", "mamba2-1.3b"]
     assert all("-> (4, 36)" in ln for ln in out)
+
+
+@pytest.mark.parametrize("tied", [True, False], ids=["tied", "untied"])
+def test_chunked_lm_head_matches_jax(tied, monkeypatch):
+    """``logits_from_h`` over chunks of the vocab (a decode step's few
+    rows, no gradient taken) against the JAX package's one product, tied
+    and with an untied ``unembed``, at a vocab of 4097 that the chunk
+    (1024 here) does not divide; and against the port's own product over
+    the whole table (gradient enabled): the same dots, which a CPU matmul
+    may sum in another order for another width, so within 1e-6."""
+    over = dict(vocab=4097, tie_embeddings=tied, compute_dtype="bfloat16")
+    jcfg = dataclasses.replace(jax_smoke("qwen3-14b"), **over)
+    cfg = dataclasses.replace(torch_smoke("qwen3-14b"), **over)
+    params = jax.tree.map(np.asarray,
+                          JM.init_params(jax.random.PRNGKey(3), jcfg))
+    assert ("unembed" in params) != tied
+    h = np.random.default_rng(5).standard_normal(
+        (B, 1, cfg.d_model)).astype(np.float32)
+    want = np.asarray(JM.logits_from_h(jax.tree.map(jnp.asarray, params),
+                                       jcfg, jnp.asarray(h)))
+    tparams = lm_params_from_numpy(params, device="cpu")
+    monkeypatch.setattr(TM, "LOGITS_CHUNK", 1024)
+    with torch.no_grad():
+        got = TM.logits_from_h(tparams, cfg, torch.from_numpy(h))
+    whole = TM.logits_from_h(tparams, cfg, torch.from_numpy(h)).detach()
+    assert got.shape == (B, 1, 4097) and got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), want, rtol=2e-4, atol=2e-4)
+    torch.testing.assert_close(got, whole, rtol=1e-6, atol=1e-6)

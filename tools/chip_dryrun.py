@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""Phase 11 of chip_smoke.py (the dry run) alone, on one GPU.
+"""Phase 11 or 12 of chip_smoke.py (the dry run) alone, on one GPU.
 
-    python3 tools/chip_dryrun.py [--out FILE]
+    python3 tools/chip_dryrun.py [--sharded] [--out FILE]
 
 Runs ``chip_smoke.dryrun_phase`` with TF32 off (``quickstart.
 full_precision``): the dry run (``repro_torch.launch.dryrun``) of
@@ -13,6 +13,13 @@ count 0 launches. Prints the card's name and power limit, each check's
 line, and writes the phase's record to ``--out`` (default
 ``chiprun_out/chip_dryrun.json``). Exits non-zero if a check fails or no
 CUDA device is present.
+
+``--sharded`` runs phase 12 instead (``chip_smoke.sharded_dryrun_phase``):
+the sharded dry runs on this machine's torch over ``cuda`` meshes of fake
+ranks, thirteen small-mesh cases and two production ones, each held to
+its bars against the JAX package's figures in
+``tests/dryrun_reference.json`` (``chiprun_out/chip_dryrun_sharded.json``
+by default).
 """
 from __future__ import annotations
 
@@ -29,9 +36,11 @@ sys.path.insert(0, str(ROOT / "src"))
 
 def main() -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--out", default=str(ROOT / "chiprun_out" /
-                                         "chip_dryrun.json"))
+    ap.add_argument("--sharded", action="store_true")
+    ap.add_argument("--out", default=None)
     args = ap.parse_args()
+    args.out = args.out or str(ROOT / "chiprun_out" / (
+        "chip_dryrun_sharded.json" if args.sharded else "chip_dryrun.json"))
     import torch
     if not torch.cuda.is_available():
         print("chip_dryrun: torch.cuda.is_available() is False",
@@ -45,11 +54,14 @@ def main() -> int:
           flush=True)
     qs.full_precision()
     t0 = time.perf_counter()
-    out = cs.dryrun_phase(torch, reset_counts, read_counts)
-    out.update(device=card, phase_s=time.perf_counter() - t0)
+    out = cs.sharded_dryrun_phase(torch) if args.sharded else \
+        cs.dryrun_phase(torch, reset_counts, read_counts)
+    out.update(device=card, torch=torch.__version__,
+               phase_s=time.perf_counter() - t0)
     Path(args.out).parent.mkdir(parents=True, exist_ok=True)
     Path(args.out).write_text(json.dumps(out, indent=1))
-    print(f"phase 11 in {out['phase_s']:.1f} s -> {args.out}")
+    print(f"phase {12 if args.sharded else 11} in {out['phase_s']:.1f} s "
+          f"-> {args.out}")
     return 0
 
 

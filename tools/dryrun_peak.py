@@ -8,7 +8,8 @@
         --set compute_dtype=bfloat16 --set ssm_impl=pallas
 
 Traces one step as ``launch.dryrun.run_one`` does (a fake process group
-of the mesh's size, DTensors over meta shards on a ``cpu`` mesh, the full
+of the mesh's size, DTensors over meta shards on a ``cpu`` mesh
+(``--device cuda``: a ``cuda`` one), the full
 config of ``--arch``, or its smoke config with ``--smoke``, with ``--set``
 overrides), and prints the record's per-rank peak, FLOPs and link bytes,
 then the storages live at the peak, largest first, each with the local op
@@ -57,6 +58,9 @@ def main(argv=None) -> int:
                     help="a config field, key=value (int where it parses)")
     ap.add_argument("--top", type=int, default=25)
     ap.add_argument("--ops", action="store_true")
+    ap.add_argument("--device", default="cpu", choices=["cpu", "cuda"],
+                    help="the mesh's device type (a torch with CUDA traces "
+                         "cuda meshes, as chip_smoke.py phase 12 does)")
     args = ap.parse_args(argv)
 
     import torch
@@ -127,7 +131,7 @@ def main(argv=None) -> int:
     mesh = tuple(int(x) for x in args.mesh.split(","))
     rec = D.run_one(args.arch, InputShape("peak", args.seq, args.batch,
                                           args.kind), "local", cfg=cfg,
-                    mesh_shape=mesh, device="cpu")
+                    mesh_shape=mesh, device=args.device)
     if rec["status"] != "ok":
         print(rec.get("traceback", rec.get("error", "")), file=sys.stderr)
         return 1
