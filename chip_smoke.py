@@ -93,16 +93,18 @@ Phases, each printing its own line; any failure exits non-zero:
                   matmul FLOPs equal, peak within DRY_PEAK_BAR;
  12. sharded dry run — the dry run on this machine's torch over ``cuda``
                   meshes of fake ranks, each case in a process of its own:
-                  the thirteen small-mesh cases of ``tools/dryrun_small.py``
+                  the small-mesh cases of ``tools/dryrun_small.py``
                   (8 ranks; matmul FLOPs 1 to 1.2 times a rank's share of
                   the one-rank trace, at most 1.05 times the JAX
                   package's dots, peak and link bytes at most 1.25 times
-                  its figures) and mamba2-1.3b ``train_4k`` on the
-                  256-rank mesh and mixtral-8x22b ``decode_32k`` on the
-                  512-rank one at full width (FLOPs and peak at most 1.25
-                  times the JAX package's record, link bytes at most 4
-                  times); the JAX package's figures from
-                  ``tests/dryrun_reference.json``;
+                  its figures; a flash case's K5 on its ceil(h / m)
+                  padded heads) and mamba2-1.3b ``train_4k`` and
+                  qwen3-14b's flash ``prefill_32k`` on the 256-rank mesh
+                  and mixtral-8x22b ``decode_32k`` on the 512-rank one at
+                  full width (FLOPs and peak at most 1.25 times the JAX
+                  package's record, link bytes at most 4 times; FLOPs,
+                  peak and link bytes within 0.1% of the port's on torch
+                  2.13); the figures from ``tests/dryrun_reference.json``;
 and then the ``kernels`` JSON line, the card's name and power limit, and
 the result line. Each path runs with every launch count set to 0 just
 before it and read just after. Details go to
@@ -1493,18 +1495,31 @@ def _free_port() -> int:
 # process of its own (a process group is per process), SHARDED_JOBS at
 # once, each within DRY_TIMEOUT_S: the small-mesh cases of
 # tools/dryrun_small.py (their mesh and a one-rank trace of the same step)
-# held to tests/test_torch_dryrun.py's four bars against the JAX package's
-# figures committed in tests/dryrun_reference.json, and two production
-# cases at full width held to tools/dryrun_compare.py's bars against the
-# JAX package's sweep records committed there.
+# held to tests/test_torch_dryrun.py's bars against the JAX package's
+# figures committed in tests/dryrun_reference.json, and three production
+# cases at full width (arch:shape:mesh[:attention route]) held to
+# tools/dryrun_compare.py's bars against the JAX package's sweep records
+# committed there (the plain route's, as the flash sweep is compared), and
+# to the port's own figures on torch 2.13 committed beside them, within
+# SHARDED_SAME: both torches trace one program.
 SHARDED_JOBS = 6
 SHARDED_PRODUCTION = ("mamba2-1.3b:train_4k:single",
-                      "mixtral-8x22b:decode_32k:multi")
+                      "mixtral-8x22b:decode_32k:multi",
+                      "qwen3-14b:prefill_32k:single:flash")
+SHARDED_SAME = 1e-3
 SHARDED_ONE = """
-import json
+import dataclasses, json
+from repro_torch.configs import get_config
 from repro_torch.launch import dryrun as D
-print(json.dumps(D.run_one(%(arch)r, %(shape)r, %(mesh)r, device=%(device)r)))
+cfg = get_config(%(arch)r)
+if %(impl)r:
+    cfg = dataclasses.replace(cfg, attn_impl=%(impl)r)
+print(json.dumps(D.run_one(%(arch)r, %(shape)r, %(mesh)r, cfg=cfg,
+                           device=%(device)r)))
 """
+#: the figures of a production case that phase 12 holds to torch 2.13's
+SHARDED_FIGURES = ("op_flops_per_dev", "mem_peak_bytes_per_dev",
+                   "collective_link_bytes_per_dev")
 
 
 def _pooled(jobs, n):
@@ -1533,16 +1548,19 @@ def _pooled(jobs, n):
 
 def sharded_dryrun_phase(torch, device="cuda"):
     """Phase 12: the sharded dry run (``repro_torch.launch.dryrun``) on
-    this machine's torch, on ``cuda`` meshes of fake ranks: the thirteen
-    small-mesh cases of ``tools/dryrun_small.py``, each held to its four
-    bars (matmul FLOPs from 1 to 1.2 times a rank's share of the one-rank
-    trace run here, at most 1.05 times the reference's dots, peak and link
-    bytes at most 1.25 times the reference's), and the production cases
-    of SHARDED_PRODUCTION at full width, held to
-    ``tools/dryrun_compare.py``'s bars (FLOPs and peak at most 1.25 times
-    the reference's, link bytes at most 4 times). The reference's figures
-    are the JAX package's, committed in ``tests/dryrun_reference.json``
-    (this machine has no JAX). One line a case; every failed case fails
+    this machine's torch, on ``cuda`` meshes of fake ranks: the
+    small-mesh cases of ``tools/dryrun_small.py``, each held to its bars
+    (``dryrun_small.bars``: matmul FLOPs from 1 to 1.2 times a rank's
+    share of the one-rank trace run here, at most 1.05 times the
+    reference's dots, peak and link bytes at most 1.25 times the
+    reference's, a flash case's K5 FLOPs ceil(h / m) / (h / m) times its
+    share), and the production cases of SHARDED_PRODUCTION at full width,
+    held to ``tools/dryrun_compare.py``'s bars (FLOPs and peak at most
+    1.25 times the reference's, link bytes at most 4 times) and to the
+    port's figures on torch 2.13 within SHARDED_SAME. The reference's
+    figures are the JAX package's, committed in
+    ``tests/dryrun_reference.json`` (this machine has no JAX) beside the
+    port's 2.13 ones (``port_torch_2_13``). One line a case; every failed case fails
     the phase, after all have run. ``device``: the meshes' device type
     (``cpu`` rehearses the phase on a torch without CUDA)."""
     sys.path.insert(0, str(ROOT / "tools"))
@@ -1551,9 +1569,10 @@ def sharded_dryrun_phase(torch, device="cuda"):
     yard = json.loads((ROOT / "tests" / "dryrun_reference.json").read_text())
     jobs = {}
     for case in SHARDED_PRODUCTION:          # the longest first
-        arch, shape, mesh = case.split(":")
+        arch, shape, mesh, *impl = case.split(":")
         jobs[case] = [sys.executable, "-c", SHARDED_ONE % {
-            "arch": arch, "shape": shape, "mesh": mesh, "device": device}]
+            "arch": arch, "shape": shape, "mesh": mesh, "device": device,
+            "impl": impl[0] if impl else ""}]
     jobs.update({c["id"]: [sys.executable,
                            str(ROOT / "tools" / "dryrun_small.py"),
                            "--device", device, c["id"]] for c in DS.CASES})
@@ -1563,16 +1582,23 @@ def sharded_dryrun_phase(torch, device="cuda"):
     for name, (text, wall) in done.items():
         rec = json.loads(text.strip().splitlines()[-1])
         if name in DS.BY_ID:
-            ratios, fails = DS.bars(rec, yard["small"][name])
+            ratios, fails = DS.bars(rec, yard["small"][name],
+                                   DS.BY_ID[name])
             trace_s = [rec[k].get("trace_s") for k in ("mesh", "one")]
         else:
-            key = "__".join(name.split(":"))
+            key = "__".join(name.split(":")[:3])
             fails = [] if rec["status"] == "ok" else [
                 f"{rec['status']}: {rec.get('error')}"]
             ratios = DC.ratios(rec, yard["production"][key]) if not fails \
                 else {}
             fails += [f"{k} {v:.4f} x the reference's (bar {DC.BARS[k]})"
                       for k, v in ratios.items() if v > DC.BARS[k]]
+            same = yard["port_torch_2_13"]["cases"][name]
+            for k in SHARDED_FIGURES if not fails else ():
+                ratios[f"{k} / 2.13"] = rec[k] / same[k]
+                if abs(rec[k] / same[k] - 1) > SHARDED_SAME:
+                    fails.append(f"{k} {rec[k]:.6g} against {same[k]:.6g} "
+                                 f"on torch 2.13 (bar {SHARDED_SAME})")
             trace_s = [rec.get("trace_s")]
         out["cases"][name] = {"ok": not fails, "trace_s": trace_s,
                               "wall_s": wall, "ratios": ratios,

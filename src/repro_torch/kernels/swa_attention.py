@@ -159,14 +159,14 @@ _custom.plain_backward(_swa_attention_op, swa_attention_plain, 3)
 def _sharding(q, k, v, window, causal):
     """One mesh dim's placements, out then (q, k, v, window, causal):
     replicated; batch shards; head shards, k and v split by kv head (the
-    GQA groups then divide) or, with one kv head, replicated. DTensor
-    drops the head strategy on a mesh dim that does not divide the kv
-    heads; where it divides the query heads, the dry run repeats each
-    rank's kv groups out to its heads and runs K5 there with a group of
-    one (``launch.dryrun._k5_head_shards``), and where it divides
-    neither (qwen3-14b's 40 heads of 8 on 16 ranks) DTensor gathers the
-    heads and each rank runs K5 on all of them. The sequence is never
-    split."""
+    GQA groups then divide) or, with one kv head, replicated. Where a
+    mesh dim does not divide the kv heads, the dry run places K5 itself
+    (``launch.dryrun._k5_head_shards``): each rank repeats the kv groups
+    of its own query heads out to them and runs K5 there with a group of
+    one, on ``h / m`` heads where the mesh dim divides the query heads,
+    else on ``ceil(h / m)`` of the heads padded to a multiple of it, as
+    XLA pads them (qwen3-14b's 40 heads of 8 on 16 ranks: 3 a rank). The
+    sequence is never split."""
     from torch.distributed.tensor import Replicate, Shard
     R = Replicate()
     kv = Shard(2) if k.shape[2] > 1 else R

@@ -31,13 +31,16 @@ move; the lm head's chunks of a table are taken of each rank's rows),
 gathers a dim before a view splits it unevenly, merges dims into a
 strided shard, reduces partial sums before a product, splits a product
 that would be repeated on every ``model`` rank, runs K5 on each rank's
-query heads where ``model`` does not divide the kv heads, writes the
+query heads where ``model`` does not divide the kv heads (padded as XLA
+pads them where it divides neither), writes the
 decode cache on each rank's own rows, reduces a softmax over sharded keys
 by its statistics, gathers a tensor once for all its slices, and places
 ``flip``, ``constant_pad_nd``, ``index_add``, a lookup's gradient, a
-lookup in a row-sharded table, a gather from a sharded dim and a partial
-plus a sharded sum itself (torch 2.11 has no rule, or a faulty one, for
-each). Its redistributions run below autograd on specs that read a
+lookup in a row-sharded table, a gather from a sharded dim, a partial
+plus a sharded sum, a product of two partial sums, ``silu_backward``,
+a top-k's ``scatter`` into zeros and a lookup's gradient into column
+shards itself (torch 2.11 has no rule, a faulty one, or one that parts
+from 2.13's, for each). Its redistributions run below autograd on specs that read a
 strided shard as a shard (:func:`_moved`). ``tests/test_torch_dryrun.py`` holds the
 per-rank matmul FLOPs, peak and link bytes against the one-rank trace of
 the same step and against the JAX package's compiled program on a (4, 2)
@@ -892,7 +895,16 @@ def _product_operands(func, args):
       XLA contracts mamba2's lm head over 128 of 2048), else along its
       columns (N: heads x hd, or a vocab that ``model`` need not divide: a
       rank then computes ceil(N / m) columns, as XLA pads N), else along
-      its contraction. A batched product of fewer rows than ``model`` has
+      its contraction. A batched product whose contraction another mesh
+      dim splits already (the gradient of a MoE's hidden layer, (experts,
+      capacity, d_model) against the experts' (d_model, d_ff), d_model on
+      ``data``), and whose whole product is larger than the operands'
+      parts, is split along the larger of its rows and its columns:
+      split along the contraction too, each rank held the whole (experts,
+      capacity, d_ff) product, partial over both (8.59e10 B a rank in one
+      full-width mixtral-8x22b layer's train step on (2, 16, 16): the
+      multi-pod ``train_4k`` peak 1.239x the reference's, 0.715x now). A
+      batched product of fewer rows than ``model`` has
       ranks (a decode step's scores: one query of each group, (b·k, g,
       hd) with the cache's (b·k, hd, s)) is split along its columns
       first: split along hd, its partial scores were reduced whole over
@@ -924,7 +936,16 @@ def _product_operands(func, args):
                       and b.placements[i].is_replicate()):
         return tuple(args)
     rows, k, n = a._local_tensor.shape[-2:] + b._local_tensor.shape[-1:]
-    if a.ndim == 3 and k % m == 0 and not (rows < m <= n):
+    # a contraction another mesh dim splits already, whose whole product
+    # is larger than the operands' parts (an expert's gradient product
+    # over d_model on data): split along the larger of the rows and the
+    # columns, not along the contraction again
+    split_k = a.ndim == 3 and rows * n > k * (rows + n) and any(
+        p.is_shard(a.ndim - 1) for j, p in enumerate(a.placements) if j != i)
+    if split_k and rows > n and rows % m == 0:
+        a = _shard_on(a, i, a.ndim - 2)
+    elif a.ndim == 3 and k % m == 0 and not (rows < m <= n) and not (
+            split_k and (n % m == 0 or n >= m)):
         a, b = _shard_on(a, i, a.ndim - 1), _shard_on(b, i, b.ndim - 2)
     elif n % m == 0 or n >= m:
         b = _shard_on(b, i, b.ndim - 1)
@@ -1239,6 +1260,11 @@ def _pointwise_operands(func, a, b):
       a product's small factor and keeps the product partial, to be
       reduced whole later, and so in a MoE's combine, partial over
       ``data``, lost the batch's shard);
+    * both partial, in a product or a quotient: the smaller one reduced
+      (a quotient's denominator), the result partial in the other, where
+      torch 2.11 reduced the larger (a norm's backward, its gradient times
+      the (..., 1) statistic: one full-width whisper layer's train step on
+      (2, 16, 16) moved 2.0% more link bytes on 2.11);
     * one partial, the other replicated (or a scalar): a sum takes the
       replicated one as the partial sum on rank 0 (a scalar: the partial
       one reduce-scattered, :func:`_reduce_scattered`), a product (a
@@ -1279,6 +1305,13 @@ def _pointwise_operands(func, a, b):
                     pl[1 - j][i] = Replicate()
                 else:
                     pl[j][i] = Shard(d) if aligned else Replicate()
+            elif mp.is_partial() and tp.is_partial() and not sums:
+                # a product of two partial sums: the smaller one reduced
+                # (on a tie the second; a quotient's denominator), and the
+                # product stays partial in the other
+                k = 1 if func is aten.div.Tensor \
+                    or b.numel() <= a.numel() else 0
+                pl[k][i] = Replicate()
             elif mp.is_partial() and tp.is_replicate():
                 if sums:
                     relabel[1 - j][i] = mp
@@ -1399,15 +1432,54 @@ def _reduce_scattered(x):
     return _moved(x, pl)
 
 
+def _local_binary(func, grad, x, *rest, **kwargs):
+    """An activation's backward ``func(grad, x)`` (``silu_backward``) on
+    each rank's shards where the two are sharded on other dims, as torch
+    2.13's DTensor places it: partial sums of either reduced first
+    (:func:`_reduce_scattered`) and the gradient then moved to the input's
+    placements (a MoE's gate activations, over ``model``: torch 2.11
+    moved the input instead, 2.6% more link bytes in a smoke mixtral train
+    step on (4, 2)); without partial sums, the input moved to the
+    gradient's (an MLP's, one full-width qwen3-14b layer's train step on
+    (2, 16, 16)). None where the shapes differ or a placement is
+    strided."""
+    from torch.distributed.tensor import DTensor
+    if not isinstance(grad, DTensor) or grad.shape != x.shape or any(
+            _strided(p, getattr(p, "dim", -1))
+            for p in (*grad.placements, *x.placements)):
+        return None
+    reduced = any(p.is_partial() for p in (*grad.placements, *x.placements))
+    grad, x = _reduce_scattered(grad), _reduce_scattered(x)
+    if reduced:
+        grad = _moved(grad, x.placements)
+    else:
+        x = _moved(x, grad.placements)
+    return _wrap(func(grad._local_tensor, x._local_tensor, *rest, **kwargs),
+                 x.device_mesh, x.placements, x.shape, x.stride())
+
+
 def _k5_head_shards(func, q, k, v, window, causal):
-    """K5 (``repro_torch::swa_attention``) where ``model`` divides the
-    query heads and not the kv heads (48 heads of 8 on 16 ranks): each
-    rank repeats the kv groups of its own heads out to them and runs K5 on
-    its heads with a group of one, q, k and v then sharing the heads'
-    shard, as ``HeadRepeat`` does for the plain route. K5's DTensor rule
+    """K5 (``repro_torch::swa_attention``) on each ``model`` rank's query
+    heads where ``model`` does not divide the kv heads: each rank repeats
+    the kv groups of its own heads out to them and runs K5 on its heads
+    with a group of one, q, k and v then sharing the heads' shard, as
+    ``HeadRepeat`` does for the plain route. K5's DTensor rule
     (``kernels/swa_attention.py::_sharding``) splits heads only where the
     mesh dim divides the kv heads; DTensor gathered the heads instead, and
-    each ``model`` rank ran K5 on all of them. None for any other case."""
+    each ``model`` rank ran K5 on all of them.
+
+    Where ``model`` divides the query heads (48 heads of 8 on 16 ranks) a
+    rank takes ``h / m`` of them and the output keeps the heads' shard.
+    Where it divides neither (qwen3-14b's 40 heads of 8, whisper-small's 12
+    of 12 on 16 ranks) the heads are padded to ``m · ceil(h / m)``, as
+    XLA's partitioner pads a dim the mesh does not divide (:func:`_padded`):
+    a rank takes ``ceil(h / m)`` of them (3, or 1); the output moves back
+    to q's shard over ``model`` where q had one, else to the sequence's
+    shard (an all-to-all: gathered whole, it moved m times the bytes), and
+    the padding is cut off. Where ``model`` splits the batch, or can (a
+    ``train_4k`` step's 16 sequences a ``data`` rank), K5's own rule runs
+    each rank's sequences instead: padded heads moved whisper-small's
+    flash ``train_4k`` 7.3x the link bytes. None for any other case."""
     from torch.distributed.tensor import DTensor, Replicate, Shard
     if not all(isinstance(t, DTensor) for t in (q, k, v)):
         return None
@@ -1417,7 +1489,7 @@ def _k5_head_shards(func, q, k, v, window, causal):
         return None
     i = names.index("model")
     m, h, kh = mesh.size(i), q.shape[2], k.shape[2]
-    if m == 1 or h % m or kh % m == 0 or any(
+    if m == 1 or kh % m == 0 or any(
             _strided(p, getattr(p, "dim", -1))
             for t in (q, k, v) for p in t.placements):
         return None
@@ -1427,14 +1499,49 @@ def _k5_head_shards(func, q, k, v, window, causal):
     if any(p.is_shard(2) for j, p in enumerate(q_pl) if j != i):
         return None
     kv_pl = [Replicate() if j == i else p for j, p in enumerate(q_pl)]
-    q, k, v = _moved(q, q_pl), _moved(k, kv_pl), _moved(v, kv_pl)
-    group, mine = h // kh, h // m
+    mine = -(-h // m)
+    if mine * m != h and (any(p.is_shard(2) for p in q.placements)
+                          or q.placements[i].is_shard(0)
+                          or q._local_tensor.shape[0] % m == 0):
+        # heads sharded already, or a batch that model splits or can split
+        # (K5's own rule runs each rank's sequences, no padding)
+        return None
+    back = q.placements[i]
+    if not back.is_shard() or back.is_shard(2):
+        back = Shard(1) if q.shape[1] % m == 0 and not any(
+            p.is_shard(1) for p in q.placements) else Replicate()
+    q = _moved(_padded(q, 2, mine * m), q_pl)
+    k, v = _moved(k, kv_pl), _moved(v, kv_pl)
+    group = h // kh
 
     def repeated(t):
         return t._local_tensor.narrow(2, 0, -(-mine // group)) \
             .repeat_interleave(group, 2).narrow(2, 0, mine)
-    return _wrap(func(q._local_tensor, repeated(k), repeated(v), window,
-                      causal), mesh, q_pl, q.shape)
+    out = _wrap(func(q._local_tensor, repeated(k), repeated(v), window,
+                     causal), mesh, q_pl, q.shape)
+    if mine * m == h:
+        return out
+    out = _moved(out, [back if j == i else p for j, p in enumerate(q_pl)])
+    shape = list(out.shape)
+    shape[2] = h
+    return _wrap(out._local_tensor.narrow(2, 0, h), mesh, out.placements,
+                 shape)
+
+
+def _padded(x, dim, size):
+    """``x`` with its ``dim`` padded to ``size`` (zeros at the end, in each
+    rank's local tensor; no mesh dim may shard ``dim``), so that a mesh
+    dim that does not divide it divides the padded one, as XLA pads it; a
+    partial ``x`` stays partial (its padding sums to zeros). ``x`` itself
+    where ``dim`` has that size."""
+    if x.shape[dim] == size:
+        return x
+    local = x._local_tensor
+    pad = [0, 0] * (x.ndim - 1 - dim) + [0, size - x.shape[dim]]
+    shape = list(x.shape)
+    shape[dim] = size
+    return _wrap(torch.constant_pad_nd(local, pad), x.device_mesh,
+                 x.placements, shape)
 
 
 def _local_gather(x, dim, index, sparse_grad=False):
@@ -1717,6 +1824,52 @@ def _partial_index_put(x, idx, values):
         local.index_put([idx], values, accumulate=True), mesh, out, x.shape)
 
 
+def _columns_index_put(x, idx, values):
+    """``index_put(x, [idx], values, accumulate=True)`` into zeros ``x``
+    whose columns are sharded (the gradient of a MoE's token lookup, its
+    d_model on ``data``): ``values`` gathered along their rows and placed
+    on ``x``'s column shards, the indices gathered, and each rank adds
+    into its columns, as torch 2.13 places it; torch 2.11 sharded the
+    result's rows as the values' instead. None where a placement of ``x``
+    is partial, strided or a row shard."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    n = idx.ndim
+    if any(not (p.is_replicate() or p.is_shard() and p.dim >= 1)
+           or _strided(p, getattr(p, "dim", -1)) for p in x.placements):
+        return None
+    v_to = [Shard(p.dim + n - 1) if p.is_shard() else Replicate()
+            for p in x.placements]
+    values = _moved(values, v_to)._local_tensor
+    idx = _moved(idx, [Replicate()] * idx.device_mesh.ndim)._local_tensor \
+        if isinstance(idx, DTensor) else idx
+    local = torch.zeros(x._local_tensor.shape, dtype=x.dtype,
+                        device=values.device)
+    return _wrap(local.index_put([idx], values, accumulate=True),
+                 x.device_mesh, x.placements, x.shape)
+
+
+def _local_scatter(x, dim, index, src):
+    """``scatter(x, dim, index, src)`` into zeros ``x`` (a top-k's
+    backward) on each rank's shards: the indices and the zeros placed as
+    ``src``, the local scatter, as torch 2.13 places it (its autograd
+    makes the zeros with the gradient's ``new_zeros``, sharded as the
+    gradient); torch 2.11 made them plain, and the result came out
+    replicated. None where ``src`` is sharded along ``dim``, partial or
+    strided, or where the shapes differ."""
+    from torch.distributed.tensor import DTensor
+    if not isinstance(src, DTensor) or tuple(x.shape) != tuple(src.shape) \
+            or tuple(index.shape) != tuple(src.shape) or any(
+            p.is_shard(dim % src.ndim) or p.is_partial()
+            or _strided(p, getattr(p, "dim", -1)) for p in src.placements):
+        return None
+    index = _moved(index, src.placements)._local_tensor \
+        if isinstance(index, DTensor) else _local_part(
+            index, src.device_mesh, src.placements)
+    local = torch.zeros_like(src._local_tensor, dtype=x.dtype)
+    return _wrap(local.scatter(dim, index, src._local_tensor),
+                 src.device_mesh, src.placements, src.shape)
+
+
 def _column_lookup(table, idx):
     """``table[idx]`` (or ``index_select(table, 0, idx)``) of a 1-D or 2-D
     ``table`` (an embedding lookup, MoE's expert ids and dispatch buffer,
@@ -1813,7 +1966,16 @@ class PartitionerPlacements(TorchDispatchMode):
     * Slices along a sharded dim (mamba2's one-token ``in_proj`` output
       cut into z, xbc and dt): DTensor gathered the whole tensor once a
       slice; here its slices share one gather
-      (:meth:`_gathered_for_slice`)."""
+      (:meth:`_gathered_for_slice`).
+    * K5 where ``model`` does not divide the kv heads: on each rank's
+      query heads, padded where ``model`` divides neither head count
+      (:func:`_k5_head_shards`).
+    * Binary pointwise ops (:func:`_pointwise_operands`,
+      :func:`_local_pointwise`), ``silu_backward`` (:func:`_local_binary`),
+      a top-k's ``scatter`` into zeros (:func:`_local_scatter`) and a
+      lookup's gradient into column shards (:func:`_columns_index_put`),
+      where torch 2.11's and 2.13's DTensor choose different placements,
+      so that both trace one program."""
 
     _PRODUCTS = (torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
                  torch.ops.aten.addmm.default,
@@ -1833,6 +1995,9 @@ class PartitionerPlacements(TorchDispatchMode):
                  torch.ops.aten.permute.default)
     _POINTWISE = (torch.ops.aten.add.Tensor, torch.ops.aten.sub.Tensor,
                   torch.ops.aten.mul.Tensor, torch.ops.aten.div.Tensor)
+    # an activation's backward of (gradient, input), placed by
+    # _local_binary
+    _BINARY = (torch.ops.aten.silu_backward.default,)
     # a partial input of any pointwise op (``clone`` among them) but these
     # linear ones is reduce-scattered first, as torch 2.13 reduces it
     # (2.11 all-reduced it)
@@ -1842,7 +2007,8 @@ class PartitionerPlacements(TorchDispatchMode):
     _ZEROS = (torch.ops.aten.zeros.default, torch.ops.aten.zeros_like.default)
     _OWN = (torch.ops.aten.flip.default, torch.ops.aten.constant_pad_nd.default,
             torch.ops.aten.index_add.default, torch.ops.aten.index_put.default,
-            torch.ops.aten.index.Tensor, torch.ops.aten.index_select.default)
+            torch.ops.aten.index.Tensor, torch.ops.aten.index_select.default,
+            torch.ops.aten.scatter.src)
 
     def __init__(self):
         super().__init__()
@@ -1899,8 +2065,8 @@ class PartitionerPlacements(TorchDispatchMode):
         """The ops this mode places itself on every torch, whatever
         DTensor offers for them (the helpers say why): ``flip``,
         ``constant_pad_nd``, ``index_add`` into a replicated tensor, an
-        accumulating ``index_put`` into zeros, and a lookup (``index``,
-        ``index_select``) in a tensor
+        accumulating ``index_put`` into zeros, ``scatter`` into zeros and
+        a lookup (``index``, ``index_select``) in a tensor
         sharded by rows. None for any other op or pattern."""
         from torch.distributed.tensor import DTensor
         aten = torch.ops.aten
@@ -1908,6 +2074,8 @@ class PartitionerPlacements(TorchDispatchMode):
         if func is aten.index_add.default:
             return _local_index_add(*args, **kwargs,
                                     zeros=self._is_zeros(x))
+        if func is aten.scatter.src and self._is_zeros(x):
+            return _local_scatter(*args)
         if not isinstance(x, DTensor):
             return None
         if func is aten.flip.default:
@@ -1916,9 +2084,10 @@ class PartitionerPlacements(TorchDispatchMode):
             return _local_pad(*args, **kwargs)
         if func is aten.index_put.default and len(args) > 3 and args[3] \
                 and len(args[1]) == 1 and self._is_zeros(x) \
-                and isinstance(args[2], DTensor) \
-                and all(p.is_replicate() for p in x.placements):
-            return _partial_index_put(x, args[1][0], args[2])
+                and isinstance(args[2], DTensor):
+            if all(p.is_replicate() for p in x.placements):
+                return _partial_index_put(x, args[1][0], args[2])
+            return _columns_index_put(x, args[1][0], args[2])
         if func is aten.index.Tensor and len(args[1]) == 1 \
                 and isinstance(args[1][0], DTensor) and x.ndim <= 2:
             return _column_lookup(x, args[1][0])
@@ -1950,7 +2119,8 @@ class PartitionerPlacements(TorchDispatchMode):
                     weakref.ref(out, lambda _: self._aranges.pop(key, None)),
                     {1: (0, *a, 1), 2: (*a, 1)}.get(len(a), a[:3]))
             return out
-        if func in self._ZEROS:
+        if func in self._ZEROS or func is torch.ops.aten.new_zeros.default \
+                and not isinstance(x, DTensor):
             return self._zeroed(func(*args, **kwargs))
         if func in self._OWN and any(isinstance(a, DTensor) for a in
                                      pytree.tree_leaves((args, kwargs))):
@@ -2007,6 +2177,11 @@ class PartitionerPlacements(TorchDispatchMode):
                 out = _local_pointwise(func, args[0], args[1], args[2:],
                                        kwargs)
             return out if out is not None else func(*args, **kwargs)
+        if func in self._BINARY and isinstance(args[1], DTensor):
+            with torch.no_grad():
+                out = _local_binary(func, *args, **kwargs)
+            if out is not None:
+                return out
         if func in self._PERMUTES and any(
                 _strided(p, getattr(p, "dim", -1)) for p in x.placements):
             return _local_permute(func, x, args[1:])

@@ -1,5 +1,6 @@
 """The multi-pod dry run's peak against the JAX package's, on the CPU, and
-``tools/dryrun_compare.py``'s account of a partial rerun.
+``tools/dryrun_compare.py``'s account of a partial rerun and of two
+torches' sweeps of one tree.
 
 On the (pod, data, model) mesh a ``remat`` layer's backward pass runs its
 forward again (``torch.utils.checkpoint``), and the autograd engine runs
@@ -85,6 +86,34 @@ def test_compare_lists_cases_not_rerun(tmp_path, capsys):
         "multi" in out
     assert "port records older than the --before sweep's: 1\n  a x " \
         "train_4k x multi" in out
+
+
+def test_compare_same_lists_cases_apart(tmp_path, capsys):
+    """``--same``: a sweep of the same tree on another torch; the cases
+    ok in both are counted, those whose figures differ at all apart from
+    the identical ones, and those over 0.1% by name."""
+    ok = dict(status="ok", op_flops_per_dev=2.0, mem_peak_bytes_per_dev=2.0,
+              collective_link_bytes_per_dev=2.0)
+    ref = dict(status="ok", hlo_flops_per_dev=2.0,
+               mem_argument_bytes_per_dev=1.0, mem_temp_bytes_per_dev=1.0,
+               mem_output_bytes_per_dev=0.0, mem_alias_bytes_per_dev=0.0,
+               collective_link_bytes_per_dev=2.0)
+    for arch, link in (("a", 2.0), ("b", 2.001), ("c", 2.01)):
+        _write(tmp_path / "ref", arch, "train_4k", "multi", **ref)
+        _write(tmp_path / "port", arch, "train_4k", "multi", **ok)
+        _write(tmp_path / "other", arch, "train_4k", "multi",
+               **dict(ok, collective_link_bytes_per_dev=link))
+    both, diff = DC.apart(DC.load(tmp_path / "port"),
+                          DC.load(tmp_path / "other"))
+    assert len(both) == 3 and sorted(k[0] for k in diff) == ["b", "c"]
+    assert diff[("c", "train_4k", "multi")]["link"] == pytest.approx(0.005)
+    assert DC.main(["--port", str(tmp_path / "port"), "--ref",
+                    str(tmp_path / "ref"), "--same",
+                    str(tmp_path / "other")]) == 0
+    out = capsys.readouterr().out
+    assert "3 cases ok in both, 1 identical" in out
+    assert "over 0.001: 1\n  c x train_4k x multi: flops +0, peak +0, " \
+        "link +0.005" in out
 
 
 @pytest.mark.parametrize("remat,gathers", [("full", 2), ("none", 1)])

@@ -18,8 +18,10 @@ torches trace the same per-rank program. The tests below hold that:
   this does not cover 2.11's planner, which ``chip_smoke.py`` phase 12
   exercises on the card;
 * each own placement, one op at a time on a (4, 2) fake mesh;
-* K5 over heads that ``model`` divides and kv heads it does not, and the
-  lm head over chunks of a vocab sharded on ``model``.
+* K5 over heads that ``model`` divides and kv heads it does not, K5 on
+  padded head shards where it divides neither, ``silu_backward`` placed by
+  the dry run, and the lm head over chunks of a vocab sharded on
+  ``model``.
 """
 import dataclasses
 import json
@@ -169,6 +171,37 @@ def test_lookup_gradient_is_a_partial_table(mesh):
     assert st.n_collectives == 0
 
 
+def test_scatter_and_column_index_put_as_torch_2_13_places_them(mesh):
+    """The two ops where a MoE train step's placements parted between the
+    torches: a top-k's backward, ``zeros.scatter(1, index, grad)``, runs on
+    each rank's rows, placed as the gradient (2.11 made its zeros plain
+    and came out replicated); the gradient of a token lookup,
+    ``zeros(x).index_put([ids], rows, accumulate=True)`` with x's columns
+    on ``data``, gathers the rows over ``model`` and adds each rank's
+    columns (2.11 sharded the result's rows over ``model``)."""
+    grad = _dt(mesh, (128, 4), (Shard(0), Shard(0)))
+    index = _dt(mesh, (128, 4), (Shard(0), Replicate()), torch.int64)
+    rows = _dt(mesh, (256, 256), (Shard(1), Shard(0)))
+    ids = _dt(mesh, (256,), (Replicate(), Replicate()), torch.int64)
+    seen = set()
+
+    def step(grad, index, rows, ids):
+        z = torch.zeros(128, 4, device="meta").scatter(1, index, grad)
+        g = torch.ops.aten.index_put.default(rows.new_zeros((128, 256)),
+                                             [ids], rows, True)
+        return z, g
+    with DS.record_ops(seen):
+        (z, g), st = _traced(mesh, step, grad, index, rows, ids)
+    assert {"aten.scatter.src", "aten.index_put.default"}.isdisjoint(seen)
+    assert z.shape == (128, 4) and z.placements == (Shard(0), Shard(0))
+    assert z._local_tensor.shape == (16, 4)
+    assert g.shape == (128, 256) and g.placements == (Shard(1), Replicate())
+    assert g._local_tensor.shape == (128, 64)
+    # the rows gathered over model, nothing else moved
+    assert st.n_collectives == 1
+    assert list(st.collective_bytes) == ["all-gather"]
+
+
 def test_gold_logit_gather_is_partial_over_the_vocab(mesh):
     """The cross-entropy's gold logits, ``logits.gather(-1, labels)`` with
     the vocab on ``model``: each rank gathers the labels in its columns,
@@ -250,3 +283,71 @@ def test_lm_head_chunks_move_nothing_more(monkeypatch, arch, vocab):
         1.01 * whole["collective_link_bytes_per_dev"]
     assert chunked["mem_peak_bytes_per_dev"] <= \
         whole["mem_peak_bytes_per_dev"]
+
+
+@pytest.mark.parametrize("h,kh,m", [(10, 2, 4), (6, 6, 4), (40, 8, 16),
+                                    (12, 12, 16)])
+def test_k5_runs_on_padded_head_shards(h, kh, m):
+    """K5 where ``model`` (m ranks) divides neither head count: q, partial
+    over ``model`` as a projection leaves it, is padded to m · ceil(h / m)
+    heads and reduce-scattered to them, each rank runs K5 on its ceil(h /
+    m) heads with its kv groups repeated out to them (K5's FLOPs ceil(h /
+    m) / (h / m) times a rank's share, as XLA pads the heads: 1.200 for
+    qwen3-14b's 40 heads on 16 ranks, 1.333 for whisper-small's 12), and
+    the output moves to q's sequence shard with the padding cut off."""
+    from repro_torch.kernels import swa_attention as K5
+    b, l, hd = 4, 128, 32
+    with D.fake_world(2 * m):
+        mesh = make_local_mesh(2, m, device_type="cpu")
+        q = _dt(mesh, (b, l, h, hd), (Shard(0), Partial()))
+        k = _dt(mesh, (b, l, kh, hd), (Shard(0), Partial()))
+        v = _dt(mesh, (b, l, kh, hd), (Shard(0), Partial()))
+        out, st = _traced(mesh, lambda q, k, v: K5.swa_attention(
+            q, k, v, 0, True), q, k, v)
+    mine = -(-h // m)
+    assert out.shape == (b, l, h, hd)
+    assert out.placements == (Shard(0), Shard(1))
+    assert out._local_tensor.shape == (b // 2, l // m, h, hd)
+    name = "repro_torch::swa_attention"
+    assert st.kernel_calls == {name: 1}
+    # the rank's K5 ran on (b / 2, l, ceil(h / m), hd)
+    local = torch.empty(b // 2, l, mine, hd, device="meta")
+    assert st.kernel_flops[name] == K5.band_flops(local, None, 0, True)
+    whole = torch.empty(b, l, h, hd, device="meta")
+    share = K5.band_flops(whole, None, 0, True) / (2 * m)
+    assert st.kernel_flops[name] / share == pytest.approx(mine / (h / m),
+                                                          rel=1e-12)
+
+
+@pytest.mark.parametrize("partial", [True, False])
+def test_silu_backward_is_placed_by_the_dry_run(mesh, partial):
+    """``silu_backward`` of a gradient and an input sharded on other dims
+    over ``model`` (a MoE's or an MLP's gate activation): the dry run
+    places it as torch 2.13 does and computes it on each rank's shards;
+    the op never reaches DTensor's sharding propagator, whose choice
+    parted between torches (2.11 moved the input where 2.13 moved the
+    gradient). Partial over ``data``, both are reduce-scattered and the
+    gradient moves to the input's shards; else the input moves to the
+    gradient's."""
+    first = Partial() if partial else Shard(1)
+    g = _dt(mesh, (4, 128, 512), (first, Shard(0)))
+    x = _dt(mesh, (4, 128, 512), (Partial() if partial else Shard(1),
+                                  Shard(2)))
+    seen = set()
+    with DS.record_ops(seen):
+        y, st = _traced(mesh, lambda g, x: torch.ops.aten.silu_backward(g, x),
+                        g, x)
+    assert "aten.silu_backward.default" not in seen
+    assert y.shape == (4, 128, 512)
+    if partial:
+        # a reduce-scatter of each over data, the gradient's two shards
+        # moved
+        assert y.placements == (Shard(0), Shard(2))
+        assert y._local_tensor.shape == (1, 128, 256)
+        assert st.n_collectives == 4
+        assert set(st.collective_bytes) == {"reduce-scatter", "all-to-all"}
+    else:
+        assert y.placements == (Shard(1), Shard(0))
+        assert y._local_tensor.shape == (2, 32, 512)
+        assert st.n_collectives == 1
+        assert set(st.collective_bytes) == {"all-to-all"}

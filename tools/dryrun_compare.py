@@ -22,7 +22,10 @@ attention over heads that ``model`` does not divide); every case above
 1.25x in FLOPs or peak or above 4x in link bytes, by name; and the
 port's ok / skipped / error count by arch. ``--before`` takes an earlier
 port sweep of the same cases and lists, for each metric, the cases whose
-ratio moved further from 1 by more than 0.5%. Last, the reference's cases
+ratio moved further from 1 by more than 0.5%. ``--same`` takes a sweep
+of the same tree on another torch (the card machine's) and counts the
+cases whose FLOPs, peak or link bytes differ from the port's, those over
+0.1% by name. Last, the reference's cases
 the port has no record of, and with ``--before`` the port records older
 than that sweep's record of the same case (written before the sweep it is
 compared with, so not rerun): a partial rerun shows itself instead of
@@ -39,6 +42,25 @@ import statistics
 
 #: a case is listed above these ratios (port over reference)
 BARS = {"flops": 1.25, "peak": 1.25, "link": 4.0}
+#: ``--same``: two sweeps of one tree agree where each figure is within
+#: this fraction
+SAME = 1e-3
+FIGURES = {"flops": "op_flops_per_dev", "peak": "mem_peak_bytes_per_dev",
+           "link": "collective_link_bytes_per_dev"}
+
+
+def apart(port, other):
+    """(the cases ok in both sweeps, {case: {metric: other / port - 1}}
+    for the cases where a figure differs)."""
+    both = sorted(k for k, p in port.items() if p["status"] == "ok"
+                  and other.get(k, {}).get("status") == "ok")
+    out = {}
+    for k in both:
+        d = {m: other[k][f] / port[k][f] - 1 if port[k][f] else 0.0
+             for m, f in FIGURES.items()}
+        if any(d.values()):
+            out[k] = d
+    return both, out
 
 
 def load(d):
@@ -93,6 +115,10 @@ def main(argv=None) -> int:
     ap.add_argument("--ref", default="build/dryrun_ref")
     ap.add_argument("--before", default=None,
                     help="an earlier port sweep of the same cases")
+    ap.add_argument("--same", default=None,
+                    help="a sweep of the same tree on another torch: the "
+                         "cases whose figures differ from it, those over "
+                         "SAME by name")
     args = ap.parse_args(argv)
     port, ref = load(args.port), load(args.ref)
     rows = compare(port, ref)
@@ -138,6 +164,17 @@ def main(argv=None) -> int:
     for arch, c in sorted(counts.items()):
         print(f"{arch}: ok {c['ok']}, skipped {c['skipped']}, "
               f"error {c['error']}")
+    if args.same:
+        both, diff = apart(port, load(args.same))
+        over = {k: d for k, d in diff.items()
+                if max(abs(v) for v in d.values()) > SAME}
+        print(f"against {args.same}: {len(both)} cases ok in both, "
+              f"{len(both) - len(diff)} identical, " + ", ".join(
+                  f"{m} at most {max((abs(d[m]) for d in diff.values()), default=0):.3g} apart"
+                  for m in FIGURES) + f"; over {SAME}: {len(over)}")
+        for k, d in sorted(over.items()):
+            print(f"  {' x '.join(k)}: " + ", ".join(
+                f"{m} {v:+.4g}" for m, v in d.items()))
     missing, stale = not_rerun(port, ref, before)
     print(f"reference cases without a port record: {len(missing)}")
     for key in missing:

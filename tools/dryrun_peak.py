@@ -17,7 +17,9 @@ that made it, its shapes and dtype, and the DTensor op it ran under with
 that op's input placements; then the same storages summed by op. With
 ``--ops`` it also prints every DTensor op as it is dispatched, with its
 inputs' and output's global shapes and placements (the backward's too),
-which is where two meshes' programs can be compared line by line. A
+which is where two meshes' programs can be compared line by line; with
+``--collectives`` every collective, with the redistribution that issued
+it, which is where two torches' plans of the same program part. A
 one-rank mesh (``--mesh 1,1``) traces plain meta tensors: the prediction
 ``chip_smoke.py`` phase 11 holds against the card. Nothing here runs a
 kernel or needs a card.
@@ -44,6 +46,12 @@ def _placed(t):
     return ""
 
 
+def _placed_list(placements):
+    return "".join(str(p) for p in placements).replace(
+        "Shard(dim=", "S(").replace("Replicate()", "R").replace(
+        "Partial(sum)", "P")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True)
@@ -58,6 +66,11 @@ def main(argv=None) -> int:
                     help="a config field, key=value (int where it parses)")
     ap.add_argument("--top", type=int, default=25)
     ap.add_argument("--ops", action="store_true")
+    ap.add_argument("--collectives", action="store_true",
+                    help="print every collective: its kind, bytes, group "
+                         "size and mesh dims, the redistribution that issued "
+                         "it (shape, placements from and to) and the DTensor "
+                         "op it ran under")
     ap.add_argument("--device", default="cpu", choices=["cpu", "cuda"],
                     help="the mesh's device type (a torch with CUDA traces "
                          "cuda meshes, as chip_smoke.py phase 12 does)")
@@ -100,7 +113,16 @@ def main(argv=None) -> int:
                         [tuple(t.shape) for t in outs][:2],
                         str(outs[0].dtype).replace("torch.", ""),
                         state["dtensor_op"])
+            n = len(self.collectives)
             super()._account(func, args, outs)
+            if collectives and len(self.collectives) > n:
+                c = self.collectives[-1]
+                print(f"C{len(self.collectives):6d} {c.kind:14s} "
+                      f"{c.bytes_out:.6g} B g{c.group_size} "
+                      f"{','.join(c.mesh_dims)} link {c.link_bytes:.6g} | "
+                      f"{state.get('redistribute')} | "
+                      f"{state['dtensor_op'][0] if state['dtensor_op'] else ''}",
+                      flush=True)
 
         def _add(self, t, own=False):
             key = id(t.untyped_storage())
@@ -126,6 +148,21 @@ def main(argv=None) -> int:
             return out
 
     D.OpAnalyzer = Peak
+    collectives = args.collectives
+    if collectives:
+        from torch.distributed.tensor import _dispatch, _redistribute
+
+        def noted(fn):
+            def call(local, current, target, *a, **k):
+                state["redistribute"] = (
+                    f"{tuple(current.shape)} "
+                    f"{_placed_list(current.placements)}->"
+                    f"{_placed_list(target.placements)}")
+                return fn(local, current, target, *a, **k)
+            return call
+        for mod in (_dispatch, _redistribute):
+            mod.redistribute_local_tensor = noted(
+                mod.redistribute_local_tensor)
     if args.ops:
         D.PartitionerPlacements = Logged
     mesh = tuple(int(x) for x in args.mesh.split(","))
